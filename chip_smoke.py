@@ -6,9 +6,12 @@ Phases, in order; any failed check exits non-zero:
 
 (a) build the CUDA kernels from ``plade_tpu_torch/csrc``;
 (b) hold each kernel against its plain PyTorch version on the card at the
-    main path's shapes, with padded references, a query whose normal
-    disagrees with every reference normal (+inf row) and duplicated
-    references (ties), and time both;
+    main path's shapes and time both: K1/K2 with padded references, a
+    query whose normal disagrees with every reference normal (+inf row)
+    and duplicated references (ties); K3 (close + connected-component
+    labelling) bit for bit at G = 64 and 256 rounds, for L = 6 and L = 12,
+    on random occupancies, an empty and a full grid and a serpentine grid
+    that 256 rounds do not converge, and K3' at L = 1;
 (c) register a synthetic room (two disjoint halves of 96k points, the
     source moved by a known rigid transform, planes labelled from the
     generator planes) with ``register_with_planes`` at the default
@@ -17,13 +20,25 @@ Phases, in order; any failed check exits non-zero:
 (d) profile one more registration of that scene: device time per
     pipeline stage, kernels launched, the device's busy share;
 (e) register a small scene on the card and on the CPU (plain kernel
-    versions) and require the same result.
+    versions) and require the same result; extract its clouds' planes on
+    the card and on the CPU from the same random draws and require the
+    same planes;
+(f) register the room of (c) from raw points with ``register_clouds`` at
+    the default ``PladeConfig`` (plane extraction on the card): one
+    warm-up, then three timed runs; the first timed run's extraction
+    rounds and selected planes per cloud against the 12 planes of the
+    scene, its kernel launches (K3 once per extraction round) and host
+    syncs, pose error and counters;
+(g) write the scene as PLY files and require ``register_files`` to give
+    the transform of ``register_clouds``;
+(h) profile one ``register_clouds`` (its stage table has ``plade.extract``).
 
 The last lines are the kernels' JSON line, the card's name and power limit
 from nvidia-smi, and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -43,6 +58,13 @@ import torch
 D2_RTOL = 1e-6
 ROT_TOL_DEG = 1.0
 TRANS_TOL = 0.05
+#: an extracted plane matches a generator plane within this angle and
+#: offset
+PLANE_TOL_DEG = 1.0
+PLANE_TOL_D = 0.02
+#: register_files against register_clouds on the same points
+FILES_TOL_DEG = 0.01
+FILES_TOL_T = 1e-4
 
 
 def fail(msg: str):
@@ -204,7 +226,9 @@ def fit_planes(points, normals, point_plane, count, max_planes, PlaneSet):
 def make_scene(n_per_plane, seed, PlaneSet, max_planes, syn):
     """A room split into two disjoint random halves, the source half moved
     by a known rigid transform, each half with planes labelled from the
-    generator planes (in the world frame) and refit in its own frame."""
+    generator planes (in the world frame) and refit in its own frame.
+    Returns (target points, normals, source points, normals, target
+    planes, source planes, R, t, generator planes)."""
     rng = np.random.default_rng(seed)
     pts, nrm, gen = syn.make_room(rng, n_per_plane=n_per_plane, noise=0.002,
                                   extra_planes=6, normal_noise_deg=2.0)
@@ -219,7 +243,8 @@ def make_scene(n_per_plane, seed, PlaneSet, max_planes, syn):
     src_planes = fit_planes(spts, snrm,
                             *generator_labels(pts[si], gen, max_planes),
                             max_planes, PlaneSet)
-    return (pts[ti], nrm[ti], spts, snrm, tgt_planes, src_planes, R, t)
+    return (pts[ti], nrm[ti], spts, snrm, tgt_planes, src_planes, R, t,
+            gen)
 
 
 def pose_errors(T, R, t):
@@ -242,12 +267,13 @@ def check_result(tag, T, info):
         fail(f"{tag}: registration failed: {info}")
 
 
-def profile_stages(run):
+def profile_stages(run, tag="[d]"):
     """One profiled call of ``run``: device time per pipeline stage (the
-    ``plade.*`` profiler ranges), kernels launched, and the device's busy
-    share of the wall time.  Kernels are attributed to the stage whose
-    host range encloses their launch (matched by correlation id in the
-    exported trace)."""
+    ``plade.*`` profiler ranges; a range entered several times sums),
+    kernels launched, and the device's busy share of the wall time.
+    Kernels are attributed to the stage whose host range encloses their
+    launch (matched by correlation id in the exported trace).  Returns
+    {stage: (host ms, device ms, kernels)}."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -268,7 +294,9 @@ def profile_stages(run):
                  and "correlation" in e.get("args", {})}
     device = [e for e in events
               if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
-    per_stage = {name: [0.0, 0, end - start] for start, end, name in stages}
+    per_stage = {}
+    for start, end, name in stages:
+        per_stage.setdefault(name, [0.0, 0, 0.0])[2] += end - start
     other = [0.0, 0]
     for e in device:
         ts = launch_ts.get(e.get("args", {}).get("correlation"))
@@ -280,18 +308,319 @@ def profile_stages(run):
         slot[0] += e["dur"]
         slot[1] += e.get("cat") == "kernel"
     busy_us = sum(e["dur"] for e in device)
-    print(f"[d] profiled registration: wall {wall_us / 1e3:.1f} ms, device "
+    print(f"{tag} profiled registration: wall {wall_us / 1e3:.1f} ms, device "
           f"busy {busy_us / 1e3:.1f} ms ({100 * busy_us / wall_us:.1f}%), "
           f"kernels {sum(e.get('cat') == 'kernel' for e in device)}",
           flush=True)
-    print("[d] stage            host ms   device ms  kernels", flush=True)
+    for kernel in ("nn_kernel", "oriented_kernel", "close_label_kernel"):
+        durs = [e["dur"] for e in device if kernel in e["name"]]
+        if durs:
+            print(f"{tag} {kernel}: {len(durs)} launches, "
+                  f"{sum(durs) / 1e3:.3f} ms device, longest "
+                  f"{max(durs) / 1e3:.3f} ms", flush=True)
+    print(f"{tag} stage            host ms   device ms  kernels", flush=True)
     for name, (dev_us, n, host_us) in per_stage.items():
-        print(f"[d] {name:<18}{host_us / 1e3:8.2f}  {dev_us / 1e3:9.2f}  "
+        print(f"{tag} {name:<18}{host_us / 1e3:8.2f}  {dev_us / 1e3:9.2f}  "
               f"{n:7d}", flush=True)
-    print(f"[d] {'(outside)':<18}{'':8}  {other[0] / 1e3:9.2f}  "
+    print(f"{tag} {'(outside)':<18}{'':8}  {other[0] / 1e3:9.2f}  "
           f"{other[1]:7d}", flush=True)
     if busy_us <= 0:
         fail("profiler saw no device time")
+    return {name: (host_us / 1e3, dev_us / 1e3, n)
+            for name, (dev_us, n, host_us) in per_stage.items()}
+
+
+def serpentine(G: int) -> torch.Tensor:
+    """(G, G) int32 occupancy of one winding component: full rows every 4
+    rows (3 empty rows between them stay open under the close), joined at
+    alternating ends.  Its path is about G * G / 4 cells long, so 256
+    propagation rounds do not converge it at G = 64."""
+    occ = torch.zeros((G, G), dtype=torch.int32)
+    for k, r in enumerate(range(0, G, 4)):
+        occ[r] = 1
+        if r + 4 < G:
+            occ[r + 1:r + 4, G - 1 if k % 2 == 0 else 0] = 1
+    return occ
+
+
+def cc_grids(L: int, G: int, seed: int) -> torch.Tensor:
+    """(L, G, G) int32 occupancy counts on the card: the serpentine, an
+    empty and a full grid, then random counts (0-3) at densities spread
+    over 0.05-0.6."""
+    g = torch.Generator().manual_seed(seed)
+    dens = torch.linspace(0.05, 0.6, L - 3)
+    rand = (torch.rand((L - 3, G, G), generator=g) < dens[:, None, None]) \
+        .to(torch.int32) * torch.randint(1, 4, (L - 3, G, G), generator=g,
+                                         dtype=torch.int32)
+    fixed = torch.stack([serpentine(G),
+                         torch.zeros((G, G), dtype=torch.int32),
+                         torch.ones((G, G), dtype=torch.int32)])
+    return torch.cat([fixed, rand]).cuda().contiguous()
+
+
+def check_cc(cc):
+    """K3 and K3' against the plain version, bit for bit (integers)."""
+    G, iters = 64, 256
+    rows = []
+    for L in (6, 12):
+        occ = cc_grids(L, G, seed=L)
+        lab = cc.close_and_label_lanes(occ, iters)
+        torch.cuda.synchronize()
+        plain = cc.close_and_label_lanes_plain(occ, iters)
+        if not torch.equal(lab, plain):
+            bad = (lab != plain).reshape(L, -1).any(1).nonzero().flatten()
+            fail(f"close_and_label_lanes L={L}: lanes {bad.tolist()} differ "
+                 "from the plain version")
+        # the serpentine lane must be unconverged at 256 rounds, and its
+        # converged labels must agree too
+        long_k = cc.close_and_label_lanes(occ[:1], G * G)
+        long_p = cc.close_and_label_lanes_plain(occ[:1], 2 * G * G // 3)
+        if torch.equal(long_k, lab[:1]):
+            fail("serpentine grid converged within 256 rounds")
+        if not torch.equal(long_k, long_p):
+            fail("serpentine grid: converged labels differ")
+        if not (lab[1] == G * G).all() or not (lab[2] == 0).all():
+            fail("empty / full grid labels wrong")
+        print(f"[b] K3 close_and_label_lanes L={L} G={G} iters={iters}: "
+              f"bit-identical to the plain version on {L} lanes "
+              f"(serpentine unconverged, empty, full, random); "
+              "components in lane 5: "
+              f"{int((torch.unique(lab[5]) < G * G).sum())}",
+              flush=True)
+        if L == 6:
+            ms = cuda_ms(lambda: cc.close_and_label_lanes(occ, iters), 20)
+            plain_ms = cuda_ms(
+                lambda: cc.close_and_label_lanes_plain(occ, iters))
+            print(f"[b] K3 L=6: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms",
+                  flush=True)
+            rows.append({"name": "close_and_label_lanes", "route": "cuda",
+                         "source": "plade_tpu_torch/csrc/cc.cu",
+                         "replaces": "plade_tpu/kernels/cc.py:105",
+                         "max_abs_err": (lab - plain).abs().max().item(),
+                         "ms": ms, "plain_ms": plain_ms})
+    occ1 = cc_grids(4, G, seed=1)[3]
+    lab1 = cc.close_and_label(occ1, iters)
+    torch.cuda.synchronize()
+    plain1 = cc.close_and_label_lanes_plain(occ1[None], iters)[0]
+    if not torch.equal(lab1, plain1):
+        fail("close_and_label (L=1) differs from the plain version")
+    ms = cuda_ms(lambda: cc.close_and_label(occ1, iters), 20)
+    plain_ms = cuda_ms(lambda: cc.close_and_label_lanes_plain(occ1[None],
+                                                              iters))
+    print(f"[b] K3' close_and_label L=1: bit-identical; kernel {ms:.4f} ms, "
+          f"plain {plain_ms:.3f} ms", flush=True)
+    rows.append({"name": "close_and_label", "route": "cuda",
+                 "source": "plade_tpu_torch/csrc/cc.cu",
+                 "replaces": "plade_tpu/kernels/cc.py:126",
+                 "max_abs_err": (lab1 - plain1).abs().max().item(),
+                 "ms": ms, "plain_ms": plain_ms})
+    return rows
+
+
+def extract_card_vs_cpu(pts, nrm, cfg, side):
+    """Extract one cloud's planes on the card and on the CPU from the same
+    draws (a CPU generator's, copied to the device each round) and require
+    the same outcome, to the tolerances of the CPU parity tests against the
+    reference: equal plane count and rounds, coefficients within 1e-4,
+    sizes within max(2, 0.1%)."""
+    from plade_tpu_torch import pipeline
+    from plade_tpu_torch.core import types as ptypes
+    from plade_tpu_torch.extract import ransac
+
+    pad = pipeline._pad_size(pts.shape[0], maximum=cfg.max_points)
+    S_cell = cfg.ransac_candidates_per_round // 2
+    n_draw = -(-pad // max(cfg.ransac_score_subset, cfg.ransac_draw_subset))
+    out = []
+    for device in ("cuda", "cpu"):
+        host_draws = ransac.generator_draws(
+            torch.Generator().manual_seed(11), pad, S_cell, n_draw)
+
+        def draws(state, device=device, host_draws=host_draws):
+            host = state._replace(level_probs=state.level_probs.cpu())
+            return tuple(x.to(device) for x in host_draws(host))
+
+        cloud = ptypes.pad_cloud(pts, nrm, pad, device)
+        planes, stats = ransac._cached_extractor(cfg, pad)(
+            cloud.points, cloud.normals, cloud.count,
+            cfg.ransac_min_allowed_support, draws=draws)
+        out.append((int(planes.count), int(stats.rounds),
+                    planes.coeffs.cpu().numpy(), planes.sizes.cpu().numpy()))
+    (n_g, r_g, c_g, s_g), (n_c, r_c, c_c, s_c) = out
+    coeff_diff = float(np.abs(c_g[:n_c] - c_c[:n_c]).max()) \
+        if n_g == n_c else float("inf")
+    size_ok = n_g == n_c and bool(
+        (np.abs(s_g[:n_c] - s_c[:n_c]) <= np.maximum(2, 0.001 * s_c[:n_c]))
+        .all())
+    print(f"[e] {side} extraction on the same draws, card vs CPU: planes "
+          f"{n_g} vs {n_c}, rounds {r_g} vs {r_c}, max coefficient diff "
+          f"{coeff_diff:.3e}, sizes {'agree' if size_ok else 'differ'}",
+          flush=True)
+    if n_g != n_c or r_g != r_c or coeff_diff > 1e-4 or not size_ok:
+        fail(f"[e] {side}: extraction differs between card and CPU")
+
+
+def true_planes(gen, n_faces=6, half_size=2.0):
+    """The scene's planes in the world frame.  ``make_room`` records each
+    room face from its first point's normal, which carries that point's
+    normal noise (2 deg here); the faces are axis-aligned at ``half_size``
+    with inward normals, so their normals are rounded to the axis.  The
+    interior planes are recorded exactly.  Returns (normals (G, 3), d (G,))
+    in float64."""
+    gn = np.stack([np.asarray(p[0], np.float64) for p in gen])
+    gd = np.array([p[1] for p in gen], np.float64)
+    gn[:n_faces] = np.round(gn[:n_faces])
+    gd[:n_faces] = half_size
+    return gn, gd
+
+
+def plane_matches(planes, gen, R, t):
+    """(count, G) bool: plane k of ``planes`` matches true plane g of the
+    scene (moved into the cloud's frame by (R, t): the cloud is
+    R^T (world - t)) within PLANE_TOL_DEG and PLANE_TOL_D, up to sign."""
+    count = int(planes.count)
+    coeffs = planes.coeffs[:count].cpu().double().numpy()
+    gn, gd = true_planes(gen)
+    gn_c = gn @ R.astype(np.float64)                  # rows R^T n
+    gd_c = gd + gn @ t.astype(np.float64)
+    dots = coeffs[:, :3] @ gn_c.T                      # (count, G)
+    dd = np.abs(coeffs[:, 3:4] * np.sign(dots) - gd_c[None, :])
+    return (np.abs(dots) >= math.cos(math.radians(PLANE_TOL_DEG))) \
+        & (dd <= PLANE_TOL_D)
+
+
+@contextlib.contextmanager
+def recorded_extractions(ransac):
+    """Records (planes, stats) of every extraction ``ransac.auto_extract``
+    runs inside the ``with`` block, in call order, by wrapping the
+    extractor it looks up; the extraction itself is untouched."""
+    real = ransac._cached_extractor
+    seen = []
+
+    def wrapped(cfg, num_points):
+        fn = real(cfg, num_points)
+
+        def run(*args, **kwargs):
+            out = fn(*args, **kwargs)
+            seen.append(out)
+            return out
+        return run
+
+    ransac._cached_extractor = wrapped
+    try:
+        yield seen
+    finally:
+        ransac._cached_extractor = real
+
+
+def check_register_clouds(tp, tn, sp, sn, R, t, gen, cfg, device):
+    """(f) ``register_clouds`` on the raw clouds: one warm-up, three timed
+    runs; extraction rounds and selected planes per cloud against the
+    scene's planes; pose error, counters, kernel launches (returned) and
+    host syncs of the first timed run, whose extractions are the ones
+    checked.  (g) ``register_files`` on the same clouds written as PLY must
+    give the same transform."""
+    from plade_tpu_torch.core import types as ptypes
+    from plade_tpu_torch.extract import ransac
+    from plade_tpu_torch.io.ply import write_ply
+    from plade_tpu_torch.kernels import nn
+    from plade_tpu_torch.pipeline import register_clouds, register_files
+
+    def sync():
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize()
+
+    T, info = register_clouds(tp, tn, sp, sn, cfg, seed=0,
+                              device=device)                 # warm-up
+    walls = []
+    for run in range(3):
+        if run == 0:
+            for k in nn.LAUNCHES:
+                nn.LAUNCHES[k] = 0
+            ptypes.HOST_SYNCS["count"] = 0
+        with recorded_extractions(ransac) as seen:
+            sync()
+            t0 = time.perf_counter()
+            T, info = register_clouds(tp, tn, sp, sn, cfg, seed=0,
+                                      device=device)
+            sync()
+            walls.append(time.perf_counter() - t0)
+        if run == 0:
+            launches = dict(nn.LAUNCHES)
+            syncs = ptypes.HOST_SYNCS["count"]
+            extractions = seen
+    check_result("[f]", T, info)
+    if info["swapped"] or len(extractions) != 2:
+        fail(f"[f] {len(extractions)} extractions (swapped "
+             f"{info['swapped']}), expected target then source")
+    frames = ((np.eye(3, dtype=np.float32), np.zeros(3, np.float32)),
+              (R, t))
+    rounds = []
+    for (planes, stats), (Rf, tf), side, key in zip(
+            extractions, frames, ("target", "source"),
+            ("tgt_planes", "src_planes")):
+        sel = ransac.select_planes_device(planes, cfg)
+        n_sel = int(sel.count)
+        # every scene plane extracted; every selected plane one of them,
+        # each a different one
+        found = plane_matches(planes, gen, Rf, tf).any(0)
+        ok_sel = plane_matches(sel, gen, Rf, tf)
+        rounds.append(int(stats.rounds))
+        print(f"[f] {side}: {int(stats.rounds)} extraction rounds, "
+              f"{int(planes.count)} planes extracted ({int(found.sum())} of "
+              f"the {len(gen)} scene planes within {PLANE_TOL_DEG} deg / "
+              f"{PLANE_TOL_D}), {n_sel} selected, sizes "
+              f"{sel.sizes[:n_sel].tolist()}", flush=True)
+        if not found.all():
+            fail(f"[f] {side}: scene planes "
+                 f"{np.flatnonzero(~found).tolist()} not extracted")
+        if not ok_sel.any(1).all() or (ok_sel.sum(0) > 1).any():
+            fail(f"[f] {side}: selected planes do not match distinct scene "
+                 "planes")
+        if n_sel < cfg.min_planes:
+            fail(f"[f] {side}: {n_sel} planes selected < {cfg.min_planes}")
+        if n_sel != info[key]:
+            fail(f"[f] {side}: {n_sel} selected planes, {info[key]} in "
+                 "register_clouds' info")
+    rot, trans = pose_errors(T, R, t)
+    print(f"[f] register_clouds: rotation error {rot:.6f} deg, translation "
+          f"error {trans:.6f}, matched_planes {info['matched_planes']}, "
+          f"score {info['score']:.6f}, overlap {info['overlap']:.6f}",
+          flush=True)
+    print(f"[f] counters: match_saturated {info['match_saturated']}, "
+          f"pen_overflow {info['pen_overflow']}, cluster_truncated "
+          f"{info['cluster_truncated']}", flush=True)
+    print(f"[f] launches per registration: {launches}; host syncs {syncs}; "
+          f"wall per pair (median of 3) {statistics.median(walls) * 1e3:.1f}"
+          f" ms, runs {[round(w * 1e3, 1) for w in walls]} ms", flush=True)
+    if rot >= ROT_TOL_DEG or trans >= TRANS_TOL:
+        fail(f"[f] pose error {rot} deg / {trans} beyond {ROT_TOL_DEG} / "
+             f"{TRANS_TOL}")
+    for key in ("match_saturated", "pen_overflow", "cluster_truncated"):
+        if info[key] != 0:
+            fail(f"[f] {key} = {info[key]}")
+    if torch.device(device).type == "cuda":
+        # one K3 launch per extraction round of each cloud
+        if launches["close_and_label_lanes"] != sum(rounds):
+            fail(f"[f] K3 launched {launches['close_and_label_lanes']} "
+                 f"times, not once per round of {rounds}")
+        if launches["oriented_min_dist_sq"] < 2 \
+                or launches["nearest_neighbor"] < 4:
+            fail(f"[f] kernel launches {launches} below K1 >= 2, K2 >= 4")
+
+    # (g) register_files on the same clouds written as PLY
+    with tempfile.TemporaryDirectory() as tmp:
+        tgt_file, src_file = Path(tmp) / "target.ply", Path(tmp) / "source.ply"
+        write_ply(str(tgt_file), tp, tn)
+        write_ply(str(src_file), sp, sn)
+        Tf, info_f = register_files(str(tgt_file), str(src_file), cfg,
+                                    seed=0, device=device)
+    check_result("[g]", Tf, info_f)
+    drot, dtrans = pose_errors(Tf, T[:3, :3].astype(np.float64), T[:3, 3])
+    print(f"[g] register_files vs register_clouds: rotation diff "
+          f"{drot:.6f} deg, translation diff {dtrans:.3e}", flush=True)
+    if drot >= FILES_TOL_DEG or dtrans >= FILES_TOL_T:
+        fail("[g] register_files disagrees with register_clouds")
+    return launches
 
 
 def main():
@@ -302,8 +631,8 @@ def main():
     from plade_tpu_torch.core import types as ptypes
     from plade_tpu_torch.core.config import PladeConfig
     from plade_tpu_torch.io import synthetic as syn
-    from plade_tpu_torch.kernels import build, nn
-    from plade_tpu_torch.pipeline import register_with_planes
+    from plade_tpu_torch.kernels import build, cc, nn
+    from plade_tpu_torch.pipeline import register_clouds, register_with_planes
 
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
           f"cuda {torch.version.cuda}, device {torch.cuda.get_device_name(0)}"
@@ -317,12 +646,12 @@ def main():
           flush=True)
 
     # (b) kernels against their plain versions
-    rows = check_kernels(nn)
+    rows = check_kernels(nn) + check_cc(cc)
 
     # (c) the slice at the default config
     cfg = PladeConfig()
-    tp, tn, sp, sn, tpl, spl, R, t = make_scene(16000, 0, ptypes.PlaneSet,
-                                               cfg.max_planes, syn)
+    tp, tn, sp, sn, tpl, spl, R, t, gen = make_scene(
+        16000, 0, ptypes.PlaneSet, cfg.max_planes, syn)
     print(f"[c] scene: target {tp.shape[0]} pts / {int(tpl.count)} planes, "
           f"source {sp.shape[0]} pts / {int(spl.count)} planes", flush=True)
     T, info = register_with_planes(tp, tn, sp, sn, tpl, spl, cfg,
@@ -363,8 +692,7 @@ def main():
     if launches["oriented_min_dist_sq"] < 2 or launches["nearest_neighbor"] \
             < 4:
         fail(f"kernel launches {launches} below K1 >= 2, K2 >= 4")
-    for row in rows:
-        row["launches"] = launches[row["name"]]
+    planes_launches = launches
 
     # (d) one profiled registration: where the time goes
     profile_stages(lambda: register_with_planes(tp, tn, sp, sn, tpl, spl,
@@ -376,11 +704,11 @@ def main():
         max_query_pairs=2048, max_target_pairs=4096, max_matches=8192,
         max_pose_clusters=512, max_candidate_results=64,
         max_penetration_tests=1024, spacing_samples=2000, max_planes=12)
-    tp, tn, sp, sn, tpl, spl, R, t = make_scene(1500, 1, ptypes.PlaneSet,
-                                               small.max_planes, syn)
-    Tg, ig = register_with_planes(tp, tn, sp, sn, tpl, spl, small,
+    stp, stn, ssp, ssn, stpl, sspl, sR, st, _ = make_scene(
+        1500, 1, ptypes.PlaneSet, small.max_planes, syn)
+    Tg, ig = register_with_planes(stp, stn, ssp, ssn, stpl, sspl, small,
                                   device="cuda")
-    Tc, ic = register_with_planes(tp, tn, sp, sn, tpl, spl, small,
+    Tc, ic = register_with_planes(stp, stn, ssp, ssn, stpl, sspl, small,
                                   device="cpu")
     check_result("[e] gpu", Tg, ig)
     check_result("[e] cpu", Tc, ic)
@@ -393,6 +721,27 @@ def main():
             or ig["matched_planes"] != ic["matched_planes"] \
             or abs(ig["score"] - ic["score"]) >= 1e-3:
         fail("card and CPU disagree on the small scene")
+    for side, (pts, nrm) in (("target", (stp, stn)), ("source", (ssp, ssn))):
+        extract_card_vs_cpu(pts, nrm, small, side)
+
+    # (f) register_clouds and (g) register_files on the scene of (c)
+    launches = check_register_clouds(tp, tn, sp, sn, R, t, gen, cfg,
+                                     "cuda")
+    for row in rows:
+        row["launches"] = launches.get(row["name"], 0)
+        row["launches_by_path"] = {
+            "register_clouds": row["launches"],
+            "register_with_planes": planes_launches.get(row["name"], 0)}
+        if row["name"] == "close_and_label":
+            # the L = 1 entry is on no main path (the reference's tests call
+            # it); the paths run the same kernel through close_and_label_lanes
+            row["on_main_path"] = False
+
+    # (h) one profiled register_clouds: where the time goes
+    table = profile_stages(lambda: register_clouds(
+        tp, tn, sp, sn, cfg, seed=0, device="cuda"), tag="[h]")
+    if "plade.extract" not in table:
+        fail("[h] no plade.extract range in the profile")
 
     print(json.dumps({"kernels": rows}))
     print(gpu_info())

@@ -5,7 +5,7 @@ The trigonometric closed form (Smith 1961) with eigenvectors from cross
 products of rows of (A - lambda I).  It is ported as written rather than
 replaced by ``torch.linalg.eigh``: the eigenvector order and signs it picks
 feed the OBB corners, and through them the per-plane quads of the
-penetration test.
+penetration test, and the RANSAC refit's plane normals.
 """
 from __future__ import annotations
 
@@ -98,3 +98,9 @@ def sym_eigh3(A: torch.Tensor):
     v_mid = cross(v_hi, v_lo)
     vecs = torch.stack([v_lo, v_mid, v_hi], dim=-1)   # columns
     return vals, vecs
+
+
+def smallest_eigvec3(A: torch.Tensor) -> torch.Tensor:
+    """Unit eigenvector of the smallest eigenvalue (plane-fit normal)."""
+    vals = sym_eigvals3(A)
+    return _eigvec(A, vals[..., 0])

@@ -1,9 +1,10 @@
 """Build and load the package's CUDA library at first use.
 
-The sources under ``plade_tpu_torch/csrc/`` are compiled with ``nvcc`` into a
-shared library with a plain C interface, loaded with ``ctypes``.  The
-library is keyed by a hash of the sources and flags, so an edited source is
-rebuilt and an unchanged one is loaded from ``plade_tpu_torch/_build/``.
+The sources under ``plade_tpu_torch/csrc/`` are compiled with ``nvcc``, one
+process per source, all started together, and linked into one shared
+library with a plain C interface, loaded with ``ctypes``.  The library is
+keyed by a hash of the sources and flags, so an edited source is rebuilt
+and an unchanged one is loaded from ``plade_tpu_torch/_build/``.
 Nothing here runs at import time: the CPU tests import every module on a
 machine without ``nvcc``.
 """
@@ -20,12 +21,18 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("nn.cu",)
+SOURCES = ("nn.cu", "cc.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC",
+              "-Xcompiler", "-fPIC",
               # the kernels' d2 must round like the plain PyTorch version
               # (no fused multiply-add); see csrc/nn.cu
               "-fmad=false")
+
+#: kernel launches per kernel, counted by the wrappers where they launch and
+#: nowhere else: a run resets the counts and reads them to show that its
+#: path went through the kernels
+LAUNCHES = {"nearest_neighbor": 0, "oriented_min_dist_sq": 0,
+            "close_and_label_lanes": 0}
 
 _P = ctypes.c_void_p
 _SIGNATURES = {
@@ -35,6 +42,9 @@ _SIGNATURES = {
     # q, qn, r, rn, normal_cos, out_d, Q, T, stream
     "plade_oriented_min_dist_sq": (_P, _P, _P, _P, ctypes.c_float, _P,
                                    ctypes.c_int, ctypes.c_int, _P),
+    # occ, out, L, G, iters, stream
+    "plade_close_and_label": (_P, _P, ctypes.c_int, ctypes.c_int,
+                              ctypes.c_int, _P),
 }
 
 
@@ -60,23 +70,48 @@ def _source_hash() -> str:
     return h.hexdigest()[:16]
 
 
+def _run(cmds):
+    """Run the commands in parallel; raise with the output of the first
+    that fails.  Returns the concatenated compiler output."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE, text=True))
+             for cmd in cmds]
+    report = []
+    failed = None
+    for cmd, proc in procs:
+        out, err = proc.communicate()
+        report.append(out + err)
+        if proc.returncode != 0 and failed is None:
+            failed = (f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}"
+                      f"\n{out}\n{err}")
+    if failed:
+        raise RuntimeError(failed)
+    return "".join(report)
+
+
 def build(verbose: bool = False) -> Path:
     """Compile the sources (if this exact build is not there yet) and return
-    the library's path.  ``verbose`` adds ``-Xptxas -v`` and returns the
-    compiler's report on stdout."""
+    the library's path.  ``verbose`` adds ``-Xptxas -v`` and prints the
+    compiler's report."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     lib = BUILD_DIR / f"libplade_kernels_{_source_hash()}.so"
     if lib.is_file() and not verbose:
         return lib
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [find_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", str(tmp), *(str(CSRC / s) for s in SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
+    nvcc = find_nvcc()
+    tag = f"{lib.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{Path(s).stem}.o" for s in SOURCES]
+    tmp = BUILD_DIR / f"{tag}.so.tmp"
+    try:
+        report = _run([[nvcc, *NVCC_FLAGS,
+                        *(["-Xptxas", "-v"] if verbose else []),
+                        "-c", "-o", str(obj), str(CSRC / src)]
+                       for src, obj in zip(SOURCES, objs)])
+        _run([[nvcc, "-shared", "-o", str(tmp), *map(str, objs)]])
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     if verbose:
-        print(proc.stdout + proc.stderr)
+        print(report)
     os.replace(tmp, lib)
     return lib
 

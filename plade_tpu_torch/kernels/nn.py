@@ -9,14 +9,15 @@ the other.  The plain versions use the kernels' difference form
 and their tie rule (lowest index wins), and are blocked over references so
 that the (Q, T) distance matrix is never materialised.
 
-``LAUNCHES`` counts kernel launches per kernel, and nothing else: a run
-resets it and reads it to show that its path went through the kernels.
+``LAUNCHES`` (shared by every kernel module, defined in ``build``) counts
+kernel launches per kernel, and nothing else: a run resets it and reads it
+to show that its path went through the kernels.
 """
 from __future__ import annotations
 
 import torch
 
-LAUNCHES = {"nearest_neighbor": 0, "oriented_min_dist_sq": 0}
+from .build import LAUNCHES
 
 #: elements of one (query, reference) block in the plain versions
 _BLOCK_ELEMS = 1 << 22

@@ -1,6 +1,7 @@
-"""The port's core against the reference package: the copied config and
-scene generators, the numpy converters, the helpers standing in for JAX
-primitives, and the rule that the port never imports JAX."""
+"""The port's core against the reference package: the copied config, scene
+generators and PLY reader/writer, the numpy converters, the helpers
+standing in for JAX primitives, and the rule that the port never imports
+JAX."""
 import dataclasses
 import subprocess
 import sys
@@ -11,13 +12,16 @@ import numpy as np
 import pytest
 import torch
 
+import plade_tpu.io.ply as jply
 import plade_tpu.io.synthetic as jsyn
 from plade_tpu.core import types as jtypes
 from plade_tpu.core.config import PladeConfig as JConfig
 from plade_tpu_torch.core import ops, types
 from plade_tpu_torch.core.config import PladeConfig
 from plade_tpu_torch.core.convert import config_from, from_numpy, to_numpy
+from plade_tpu_torch.io import ply as tply
 from plade_tpu_torch.io import synthetic as tsyn
+from torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -66,6 +70,65 @@ def test_synthetic_copy_bit_identical(name):
     for a, b in zip(run(jsyn), run(tsyn), strict=True):
         assert a.dtype == b.dtype
         np.testing.assert_array_equal(a, b)
+
+
+def _ply_files(tmp_path, rng):
+    """PLY files of every kind the readers parse: the reference writer's
+    binary and ascii output, with and without normals, and a hand-made
+    big-endian file with extra vertex properties and a face list element
+    after the vertices."""
+    pts = rng.normal(size=(57, 3)).astype(np.float32)
+    nrm = rng.normal(size=(57, 3)).astype(np.float32)
+    files = {}
+    for name, normals, binary in (("bin_normals", nrm, True),
+                                  ("ascii_normals", nrm, False),
+                                  ("bin_points", None, True),
+                                  ("ascii_points", None, False)):
+        files[name] = str(tmp_path / f"{name}.ply")
+        jply.write_ply(files[name], pts, normals, binary=binary)
+    rec = np.zeros(57, dtype=[("x", ">f8"), ("y", ">f8"), ("z", ">f8"),
+                              ("red", "u1"), ("nx", ">f4"), ("ny", ">f4"),
+                              ("nz", ">f4")])
+    for i, f in enumerate("xyz"):
+        rec[f] = pts[:, i]
+        rec["n" + f] = nrm[:, i]
+    header = ("ply\nformat binary_big_endian 1.0\nelement vertex 57\n"
+              "property double x\nproperty double y\nproperty double z\n"
+              "property uchar red\nproperty float nx\nproperty float ny\n"
+              "property float nz\nelement face 1\n"
+              "property list uchar int vertex_indices\nend_header\n")
+    files["big_endian_extra"] = str(tmp_path / "big_endian_extra.ply")
+    with open(files["big_endian_extra"], "wb") as f:
+        f.write(header.encode("ascii") + rec.tobytes()
+                + np.array([3], ">u1").tobytes()
+                + np.array([0, 1, 2], ">i4").tobytes())
+    return files
+
+
+def test_ply_copy_matches_reference(tmp_path, rng):
+    """The port's reader returns what the reference's reads (its numpy path
+    and its entry point), bit for bit, on every file; the port's writer
+    writes the reference writer's bytes."""
+    for name, path in _ply_files(tmp_path, rng).items():
+        got = tply.read_ply(path)
+        for want in (jply._read_ply_numpy(path), jply.read_ply(path)):
+            for a, b in zip(got, want, strict=True):
+                if b is None:
+                    assert a is None, name
+                    continue
+                assert a.dtype == b.dtype == np.float32, name
+                np.testing.assert_array_equal(a, b, err_msg=name)
+    pts = rng.normal(size=(9, 3)).astype(np.float32)
+    for normals in (pts[::-1].copy(), None):
+        for binary in (True, False):
+            mine, ref = tmp_path / "mine.ply", tmp_path / "ref.ply"
+            tply.write_ply(str(mine), pts, normals, binary=binary)
+            jply.write_ply(str(ref), pts, normals, binary=binary)
+            assert mine.read_bytes() == ref.read_bytes()
+            back = tply.read_ply(str(mine))
+            np.testing.assert_array_equal(back[0], pts)
+            if normals is not None:
+                np.testing.assert_array_equal(back[1], normals)
 
 
 def _jax_planes(n):
@@ -128,7 +191,8 @@ def test_lexsort_matches_jnp(rng):
 def test_port_imports_without_jax():
     code = ("import sys; import plade_tpu_torch, plade_tpu_torch.pipeline, "
             "plade_tpu_torch.core.convert; "
-            "import plade_tpu_torch.io.synthetic; "
+            "import plade_tpu_torch.io.synthetic, plade_tpu_torch.io.ply, "
+            "plade_tpu_torch.extract.ransac, plade_tpu_torch.kernels.cc; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "assert not any(m.startswith('plade_tpu.') or m == 'plade_tpu' "
             "for m in sys.modules), 'plade_tpu imported'; "
@@ -155,3 +219,6 @@ def test_unported_options_raise(flag):
                             np.full(4, -1, np.int32))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         register_with_planes(pts, pts, pts, pts, planes, planes, cfg)
+    from plade_tpu_torch.pipeline import register_clouds
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        register_clouds(pts, pts, pts, pts, cfg)

@@ -1,6 +1,6 @@
-"""K1 and K2 on a card: each CUDA kernel against its plain PyTorch version
-on the same CUDA tensors.  These tests import no JAX, so that they also
-run on a machine that has a GPU and no JAX:
+"""K1, K2 and K3 on a card: each CUDA kernel against its plain PyTorch
+version on the same CUDA tensors.  These tests import no JAX, so that they
+also run on a machine that has a GPU and no JAX:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 
@@ -8,12 +8,14 @@ Without a card they skip.  Tolerance: d2 to 1e-6 relative, as the kernels
 and the plain versions compute d2 with the same operations in the same
 order (``csrc/nn.cu`` is built without fused multiply-add); an index may
 differ from the plain version's only where the two distances tie to that
-tolerance."""
+tolerance.  K3 is integer-only: its labels equal the plain version's
+exactly, also on a serpentine grid that 256 rounds leave unconverged (the
+kernel's early stop against the plain version's full count)."""
 import numpy as np
 import pytest
 import torch
 
-from plade_tpu_torch.kernels import nn
+from plade_tpu_torch.kernels import cc, nn
 
 
 def _inputs(Q, T, seed=0):
@@ -67,3 +69,61 @@ def test_cuda_kernels_match_plain(Q, T):
     assert torch.equal(torch.isfinite(o), fin)
     assert not fin[3] and not torch.isnan(o).any()
     torch.testing.assert_close(o[fin], op[fin], rtol=1e-6, atol=0)
+
+
+def _serpentine(G):
+    """One winding component: full rows every 4 rows, joined at alternating
+    ends; its path is about G * G / 4 cells long."""
+    occ = np.zeros((G, G), np.int32)
+    for k, r in enumerate(range(0, G, 4)):
+        occ[r] = 1
+        if r + 4 < G:
+            occ[r + 1:r + 4, G - 1 if k % 2 == 0 else 0] = 1
+    return occ
+
+
+def _grids(L, G, seed=0):
+    """Serpentine, empty and full grids, then random counts at densities
+    spread over 0.05-0.6."""
+    rng = np.random.default_rng(seed)
+    fixed = [_serpentine(G), np.zeros((G, G), np.int32),
+             np.ones((G, G), np.int32)]
+    rand = [((rng.random((G, G)) < d) * rng.integers(1, 4, (G, G)))
+            .astype(np.int32) for d in np.linspace(0.05, 0.6, max(L - 3, 0))]
+    return np.stack((fixed + rand)[:L])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L", [1, 6, 12])
+@pytest.mark.parametrize("iters", [256, 8])
+def test_cuda_close_and_label_matches_plain(L, iters):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card)")
+    occ = torch.from_numpy(_grids(L, 64, seed=L)).cuda()
+    before = cc.LAUNCHES["close_and_label_lanes"]
+    lab = cc.close_and_label_lanes(occ, iters)
+    torch.cuda.synchronize()
+    assert cc.LAUNCHES["close_and_label_lanes"] == before + 1
+    assert torch.equal(lab, cc.close_and_label_lanes_plain(occ, iters))
+    one = cc.close_and_label(occ[0], iters)
+    assert torch.equal(one, lab[0])
+    if iters == 256:
+        # the serpentine lane is unconverged at 256 rounds
+        assert not torch.equal(cc.close_and_label_lanes(occ[:1], 4096),
+                               lab[:1])
+
+
+@pytest.mark.cuda
+def test_cuda_close_and_label_large_grid():
+    """G = 128 takes the kernel's opted-in dynamic shared memory."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card)")
+    rng = np.random.default_rng(3)
+    occ = torch.from_numpy((rng.random((3, 128, 128)) < 0.3)
+                           .astype(np.int32)).cuda()
+    lab = cc.close_and_label_lanes(occ, 300)
+    torch.cuda.synchronize()
+    assert torch.equal(lab, cc.close_and_label_lanes_plain(occ, 300))
+    with pytest.raises(ValueError):
+        cc.close_and_label_lanes(torch.zeros((1, 129, 129), dtype=torch.int32,
+                                             device="cuda"))

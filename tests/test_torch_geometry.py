@@ -16,6 +16,7 @@ from plade_tpu.geometry import obb as jobb
 from plade_tpu.geometry import transforms as jtr
 from plade_tpu.geometry import voxel as jvoxel
 from plade_tpu_torch.geometry import eig3, lines, obb, transforms, voxel
+from torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
 
 ATOL = 1e-5
 

@@ -17,6 +17,7 @@ from plade_tpu.kernels import nn as jnn
 from plade_tpu.knn import bruteforce as jbf
 from plade_tpu_torch.kernels import nn
 from plade_tpu_torch.knn import bruteforce
+from torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
 
 
 def _t(a):

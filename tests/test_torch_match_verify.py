@@ -44,6 +44,7 @@ from plade_tpu_torch.match import matching
 from plade_tpu_torch.refine import icp
 from plade_tpu_torch.verify import overlap, penetration
 from test_pipeline import SMALL_CFG
+from torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
 
 CFG = SMALL_CFG
 

@@ -29,6 +29,7 @@ from plade_tpu_torch.kernels import nn
 from plade_tpu_torch.knn.bruteforce import average_spacing
 from plade_tpu_torch.pipeline import prepare_cloud, register_with_planes
 from test_pipeline import SMALL_CFG
+from torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
 
 CASES = ["room_seed0", "room_seed1", "planes_overload"]
 

@@ -1,17 +1,26 @@
 """Smoke run of the PyTorch/CUDA port (``plade_tpu_torch``) on one GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent DIR]
 
 Phases, in order; any failed check exits non-zero:
 
 (a) build the CUDA kernels from ``plade_tpu_torch/csrc``;
-(b) hold each kernel against its plain PyTorch version on the card at the
-    main path's shapes and time both: K1/K2 with padded references, a
-    query whose normal disagrees with every reference normal (+inf row)
-    and duplicated references (ties); K3 (close + connected-component
-    labelling) bit for bit at G = 64 and 256 rounds, for L = 6 and L = 12,
-    on random occupancies, an empty and a full grid and a serpentine grid
-    that 256 rounds do not converge, and K3' at L = 1;
+(b) hold each kernel against its plain PyTorch version on the card, bit
+    for bit: K2 (d2 and argmin) and K1 at the main path's shapes (K2
+    131072 x 16384, K1 131072 x 16384 and 262144 x 16384) and at edge
+    shapes (ragged Q and T, Q = 1, T = 1, and small Q against 200000
+    references, the finest reference split), with BIG-padded rows, a query
+    whose normal disagrees with every reference normal (+inf row) and a
+    copy of one reference in every reference slice (the lowest index must
+    win across the kernels' atomic merge); time each at the main shapes
+    beside its plain version, its bound and, for K2, the yardstick
+    ``torch.cdist(q, r).min(dim=1)``.  With ``--parent DIR`` (a checkout of
+    the parent tree), also build DIR's ``csrc/nn.cu`` and time its K1/K2
+    against this tree's in turns on the same inputs.  K3 (close +
+    connected-component labelling) bit for bit at G = 64 and 256 rounds,
+    for L = 6 and L = 12, on random occupancies, an empty and a full grid
+    and a serpentine grid that 256 rounds do not converge, and K3' at
+    L = 1, each with the rounds its lanes need and its bound;
 (c) register a synthetic room (two disjoint halves of 96k points, the
     source moved by a known rigid transform, planes labelled from the
     generator planes) with ``register_with_planes`` at the default
@@ -28,13 +37,16 @@ Phases, in order; any failed check exits non-zero:
     warm-up, then three timed runs; the first timed run's extraction
     rounds and selected planes per cloud against the 12 planes of the
     scene, its kernel launches (K3 once per extraction round) and host
-    syncs, pose error and counters;
+    syncs, pose error and counters, the live downsampled points of both
+    clouds and the rounds K3's lanes needed; then one call without
+    ``device=``, which must launch the kernels (the default is the card);
 (g) write the scene as PLY files and require ``register_files`` to give
     the transform of ``register_clouds``;
 (h) profile one ``register_clouds`` (its stage table has ``plade.extract``).
 
-The last lines are the kernels' JSON line, the card's name and power limit
-from nvidia-smi, and ``{"ok": true, "device": {...}}``.
+The last lines are the kernels' JSON line (one row per kernel and main-path
+shape), the card's name and power limit from nvidia-smi, and
+``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -52,10 +64,32 @@ from pathlib import Path
 import numpy as np
 import torch
 
-#: relative tolerance of a kernel's d2 against its plain version.  The
-#: kernels and the plain versions compute d2 with the same operations in
-#: the same order (csrc/nn.cu is built without fused multiply-add).
-D2_RTOL = 1e-6
+#: the card's published peaks (NVIDIA H100 SXM data sheet): fp32 outside
+#: the tensor cores, and device memory.  A kernel's bound is the larger of
+#: its operations and its bytes (inputs read once, outputs written once)
+#: over these.
+PEAK_OPS = 67e12
+PEAK_BYTES = 3.35e12
+#: the main path's K1/K2 shapes (Q, T) at the default PladeConfig: K2 in
+#: the rescore ICP (16 modes x 8192 subsampled source points), K1 in overlap
+#: phase 2 (8 x 16384) and in the rescore (16 x 16384), against the 16384
+#: downsampled target points
+K2_SHAPES = ((131072, 16384),)
+K1_SHAPES = ((131072, 16384), (262144, 16384))
+#: edge shapes, held bit for bit too: ragged Q and T, one query, one
+#: reference, and small Q against many references (the finest reference
+#: split, with a duplicate of reference 5 in every slice)
+EDGE_SHAPES = ((131071, 16383), (1, 16384), (131072, 1), (1, 1),
+               (1000, 200000))
+#: floating-point operations a (query, reference) pair: K2 3 subtractions,
+#: 3 products, 2 additions; K1 those and the 3-term normal dot
+K2_FLOP = 8
+K1_FLOP = 13
+#: integer operations a cell of a K3 round (the 8 minima of the 3 x 3
+#: window), and a cell of the close (4 ORs, 4 ANDs, 1 OR)
+K3_ROUND_OPS = 8
+K3_CLOSE_OPS = 9
+NORMAL_COS = 0.7071067811865476
 ROT_TOL_DEG = 1.0
 TRANS_TOL = 0.05
 #: an extracted plane matches a generator plane within this angle and
@@ -80,7 +114,10 @@ def gpu_info() -> str:
 
 
 def cuda_ms(fn, reps: int = 5) -> float:
-    """Median over ``reps`` of one call's device time, in ms."""
+    """Median over ``reps`` of one call's device time, in ms, after three
+    untimed calls (the first calls after other work read slower)."""
+    for _ in range(3):
+        fn()
     times = []
     for _ in range(reps):
         torch.cuda.synchronize()
@@ -94,96 +131,222 @@ def cuda_ms(fn, reps: int = 5) -> float:
     return statistics.median(times)
 
 
+def sm_clock_under(fn, seconds: float = 1.5) -> str:
+    """nvidia-smi's SM clock and power draw read halfway through
+    ``seconds`` of back-to-back calls of ``fn``."""
+    import threading
+    reading = []
+
+    def read():
+        time.sleep(seconds / 2)
+        reading.append(subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60).stdout.strip())
+
+    reader = threading.Thread(target=read)
+    reader.start()
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < seconds or reader.is_alive():
+        for _ in range(20):
+            fn()
+        torch.cuda.synchronize()
+    reader.join()
+    return reading[0]
+
+
+def bound(ops: float, nbytes: float):
+    """(least time in ms, what sets it) for ``ops`` operations and
+    ``nbytes`` bytes at the card's peaks."""
+    t_ops, t_bytes = ops / PEAK_OPS, nbytes / PEAK_BYTES
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
 def kernel_inputs(Q: int, T: int, seed: int = 0, device: str = "cuda"):
     """Points in a 4 m room-sized box; reference normals within ~25 deg of
-    +z so that query 3, whose normal is -z, passes no gate."""
+    +z so that query 3, whose normal is -z, passes no gate.  Reference 5 is
+    duplicated at 10-19 and at 7 + 512 k (a copy in every reference slice
+    of the kernels' split) and queries 0-3 sit on it: ties that the lowest
+    index must win, also across slices.  The last 512 references and 256
+    queries are BIG padding (zero reference normals).  Drawn at least
+    1024 x 1024 and cut to (Q, T)."""
+    n, m = max(Q, 1024), max(T, 1024)
     g = torch.Generator(device=device).manual_seed(seed)
-    q = torch.rand(Q, 3, device=device, generator=g) * 4.0 - 2.0
-    r = torch.rand(T, 3, device=device, generator=g) * 4.0 - 2.0
+    q = torch.rand(n, 3, device=device, generator=g) * 4.0 - 2.0
+    r = torch.rand(m, 3, device=device, generator=g) * 4.0 - 2.0
     qn = torch.nn.functional.normalize(
-        torch.randn(Q, 3, device=device, generator=g), dim=1)
+        torch.randn(n, 3, device=device, generator=g), dim=1)
     rn = torch.nn.functional.normalize(
-        torch.randn(T, 3, device=device, generator=g).clamp(-3, 3) * 0.15
+        torch.randn(m, 3, device=device, generator=g).clamp(-3, 3) * 0.15
         + torch.tensor([0.0, 0.0, 1.0], device=device), dim=1)
-    r[10:20] = r[5]                   # duplicated refs: ties
-    q[0:4] = r[5]                     # queries exactly on the duplicates
+    r[10:20] = r[5]
+    r[7:m - 512:512] = r[5]
+    q[0:4] = r[5]
     qn[0:3] = torch.tensor([0.0, 0.0, 1.0], device=device)   # gates pass
     qn[3] = torch.tensor([0.0, 0.0, -1.0], device=device)     # none passes
-    r[T - 512:] = 1.0e8               # padded refs: BIG, zero normals
-    rn[T - 512:] = 0.0
-    q[Q - 256:] = 1.0e8               # padded queries: finite, masked later
-    return (q.contiguous(), qn.contiguous(), r.contiguous(),
-            rn.contiguous())
+    r[m - 512:] = 1.0e8
+    rn[m - 512:] = 0.0
+    q[n - 256:] = 1.0e8
+    return (q[:Q].contiguous(), qn[:Q].contiguous(), r[:T].contiguous(),
+            rn[:T].contiguous())
 
 
-def rel_err(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    return (a - b).abs() / b.abs().clamp(min=1e-30)
+def max_abs_diff(a: torch.Tensor, b: torch.Tensor) -> float:
+    """Largest |a - b|, equal entries (+inf included) counting 0."""
+    return torch.where(a == b, 0.0, (a - b).abs()).max().item()
+
+
+def nn_exact(nn, Q, T, q, qn, r, rn):
+    """K2 and K1 against their plain versions, bit for bit (d2 and
+    argmin); the tie rows 0-3 must take reference 5 and row 3's gate must
+    fail.  Returns the largest |d2 - plain d2| of K2 and of K1."""
+    d, i = nn.nearest_neighbor(q, r)
+    o = nn.oriented_min_dist_sq(q, qn, r, rn, NORMAL_COS)
+    torch.cuda.synchronize()
+    dp, ip = nn.nearest_neighbor_plain(q, r)
+    op = nn.oriented_min_dist_sq_plain(q, qn, r, rn, NORMAL_COS)
+    slices = (f"{nn.reference_slices(Q, T)} (K2) / "
+              f"{nn.reference_slices(Q, T, oriented=True)} (K1)")
+    if not (torch.equal(d, dp) and torch.equal(i, ip)):
+        fail(f"[b] K2 Q={Q} T={T} ({slices} slices): d2 equal "
+             f"{torch.equal(d, dp)}, argmin equal {torch.equal(i, ip)}")
+    if not torch.equal(o, op):
+        fail(f"[b] K1 Q={Q} T={T} ({slices} slices): d2 differs from the "
+             "plain version")
+    if T > 19 and not (i[0:4] == 5).all():
+        fail(f"[b] K2 tie rule broken: {i[0:4].tolist()}")
+    if Q > 3 and torch.isfinite(o[3]):
+        fail("[b] K1: a query no gate passes got a finite d2")
+    print(f"[b] Q={Q} T={T}: {slices} reference slices; K2 d2 and argmin "
+          f"and K1 d2 bit-identical to the plain versions; K1 +inf rows "
+          f"{int(torch.isinf(o).sum())}", flush=True)
+    return max_abs_diff(d, dp), max_abs_diff(o, op)
 
 
 def check_kernels(nn):
-    Q, T, cos = 131072, 16384, 0.7071067811865476
-    q, qn, r, rn = kernel_inputs(Q, T)
-    rows = []
+    """(b) K2 and K1: exact at the main path's shapes and the edge shapes;
+    kernel, plain and library times and the bound at the main shapes.
+    Returns (rows of the kernels' JSON line, the inputs per shape)."""
+    rows, inputs, errs = [], {}, {}
+    for Q, T in sorted(set(K2_SHAPES + K1_SHAPES + EDGE_SHAPES)):
+        inputs[(Q, T)] = kernel_inputs(Q, T)
+        errs[(Q, T)] = nn_exact(nn, Q, T, *inputs[(Q, T)])
+    for Q, T in K2_SHAPES:
+        q, _, r, _ = inputs[(Q, T)]
+        ms = cuda_ms(lambda: nn.nearest_neighbor(q, r))
+        plain_ms = cuda_ms(lambda: nn.nearest_neighbor_plain(q, r))
+        # yardstick only: the port never calls cdist (it writes the (Q, T)
+        # matrix, 4 Q T bytes)
+        library_ms = cuda_ms(lambda: torch.cdist(q, r).min(dim=1))
+        bound_ms, bound_by = bound(K2_FLOP * Q * T, 12 * (Q + T) + 8 * Q)
+        print(f"[b] K2 nearest_neighbor Q={Q} T={T}: kernel {ms:.4f} ms, "
+              f"plain {plain_ms:.3f} ms, cdist+min {library_ms:.3f} ms, "
+              f"bound {bound_ms:.4f} ms ({bound_by}, "
+              f"{100 * bound_ms / ms:.1f}% of it); SM clock, power under "
+              "the kernel: "
+              f"{sm_clock_under(lambda: nn.nearest_neighbor(q, r))}",
+              flush=True)
+        rows.append({"name": "nearest_neighbor", "route": "cuda",
+                     "source": "plade_tpu_torch/csrc/nn.cu",
+                     "replaces": "plade_tpu/kernels/nn.py:87",
+                     "shape": f"{Q}x{T}", "max_abs_err": errs[(Q, T)][0],
+                     "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "library_ms": library_ms})
+    for Q, T in K1_SHAPES:
+        q, qn, r, rn = inputs[(Q, T)]
+        ms = cuda_ms(lambda: nn.oriented_min_dist_sq(q, qn, r, rn,
+                                                     NORMAL_COS))
+        plain_ms = cuda_ms(lambda: nn.oriented_min_dist_sq_plain(
+            q, qn, r, rn, NORMAL_COS))
+        bound_ms, bound_by = bound(K1_FLOP * Q * T, 24 * (Q + T) + 4 * Q)
+        print(f"[b] K1 oriented_min_dist_sq Q={Q} T={T}: kernel {ms:.4f} ms,"
+              f" plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms "
+              f"({bound_by}, {100 * bound_ms / ms:.1f}% of it); no single "
+              "PyTorch call computes the gated minimum", flush=True)
+        rows.append({"name": "oriented_min_dist_sq", "route": "cuda",
+                     "source": "plade_tpu_torch/csrc/nn.cu",
+                     "replaces": "plade_tpu/kernels/nn.py:182",
+                     "shape": f"{Q}x{T}", "max_abs_err": errs[(Q, T)][1],
+                     "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "library_ms": None})
+    return rows, inputs
 
-    # K2: nearest_neighbor
-    d, i = nn.nearest_neighbor(q, r)
-    torch.cuda.synchronize()
-    dp, ip = nn.nearest_neighbor_plain(q, r)
-    if not torch.isfinite(d).all():
-        fail("nearest_neighbor: non-finite d2")
-    err = rel_err(d, dp)
-    if err.max().item() > D2_RTOL:
-        fail(f"nearest_neighbor: d2 rel err {err.max().item()}")
-    qd = q.double()
-    rd = r.double()
-    da = ((qd - rd[i.long()]) ** 2).sum(1)
-    db = ((qd - rd[ip.long()]) ** 2).sum(1)
-    off = (i != ip) & ((da - db).abs() > D2_RTOL * db.clamp(min=1e-30))
-    if off.any():
-        fail(f"nearest_neighbor: {int(off.sum())} argmin disagreements off "
-             "near-ties")
-    if not (i[0:4] == 5).all():
-        fail(f"nearest_neighbor: tie rule broken, got {i[0:4].tolist()}")
-    agree = (i == ip).float().mean().item()
-    ms = cuda_ms(lambda: nn.nearest_neighbor(q, r))
-    plain_ms = cuda_ms(lambda: nn.nearest_neighbor_plain(q, r))
-    print(f"[b] K2 nearest_neighbor Q={Q} T={T}: max abs d2 diff "
-          f"{(d - dp).abs().max().item():.3e}, max rel {err.max().item():.3e}"
-          f", argmin agreement {agree:.6f}, kernel {ms:.3f} ms, plain "
-          f"{plain_ms:.3f} ms", flush=True)
-    rows.append({"name": "nearest_neighbor", "route": "cuda",
-                 "source": "plade_tpu_torch/csrc/nn.cu",
-                 "replaces": "plade_tpu/kernels/nn.py:87",
-                 "max_abs_err": (d - dp).abs().max().item(), "ms": ms,
-                 "plain_ms": plain_ms})
 
-    # K1: oriented_min_dist_sq
-    o = nn.oriented_min_dist_sq(q, qn, r, rn, cos)
-    torch.cuda.synchronize()
-    op = nn.oriented_min_dist_sq_plain(q, qn, r, rn, cos)
-    fin = torch.isfinite(op)
-    if not torch.equal(torch.isfinite(o), fin):
-        fail("oriented_min_dist_sq: +inf rows differ")
-    if fin[3].item() or not fin[:3].all():
-        fail("oriented_min_dist_sq: gate rows wrong")
-    if torch.isnan(o).any():
-        fail("oriented_min_dist_sq: NaN")
-    err = rel_err(o[fin], op[fin])
-    if err.max().item() > D2_RTOL:
-        fail(f"oriented_min_dist_sq: d2 rel err {err.max().item()}")
-    abs_err = (o[fin] - op[fin]).abs().max().item()
-    ms = cuda_ms(lambda: nn.oriented_min_dist_sq(q, qn, r, rn, cos))
-    plain_ms = cuda_ms(lambda: nn.oriented_min_dist_sq_plain(q, qn, r, rn,
-                                                             cos))
-    print(f"[b] K1 oriented_min_dist_sq Q={Q} T={T}: max abs d2 diff "
-          f"{abs_err:.3e}, max rel {err.max().item():.3e}, +inf rows "
-          f"{int((~fin).sum())} (agree), kernel {ms:.3f} ms, plain "
-          f"{plain_ms:.3f} ms", flush=True)
-    rows.append({"name": "oriented_min_dist_sq", "route": "cuda",
-                 "source": "plade_tpu_torch/csrc/nn.cu",
-                 "replaces": "plade_tpu/kernels/nn.py:182",
-                 "max_abs_err": abs_err, "ms": ms, "plain_ms": plain_ms})
-    return rows
+def parent_nn_library(parent: Path):
+    """The parent tree's ``csrc/nn.cu`` built with this tree's flags into
+    its own library, with its entry points' signatures (the first port's
+    K2 takes no key scratch)."""
+    import ctypes
+
+    from plade_tpu_torch.kernels import build
+    src = parent / "plade_tpu_torch" / "csrc" / "nn.cu"
+    lib = build.BUILD_DIR / "libparent_nn.so"
+    subprocess.run([build.find_nvcc(), *build.NVCC_FLAGS, "-shared", "-o",
+                    str(lib), str(src)], check=True, timeout=600)
+    dll = ctypes.CDLL(str(lib))
+    P, I = ctypes.c_void_p, ctypes.c_int
+    keys = hasattr(dll, "plade_nn_ref_slices")
+    dll.plade_nearest_neighbor.argtypes = \
+        [P, P, P, P] + ([P] if keys else []) + [I, I, P]
+    dll.plade_oriented_min_dist_sq.argtypes = \
+        [P, P, P, P, ctypes.c_float, P, I, I, P]
+    return dll, keys
+
+
+def compare_parent(nn, parent: Path, rows, inputs):
+    """The parent's K1/K2 against this tree's, on the inputs of (b): the
+    same bits, and each shape timed in turns parent, change, change,
+    parent.  Adds ``parent_ms`` (the two parent medians) to the rows."""
+    dll, keys = parent_nn_library(parent)
+
+    def k2(q, r):
+        Q = q.shape[0]
+        d = torch.empty(Q, device="cuda")
+        i = torch.empty(Q, dtype=torch.int32, device="cuda")
+        extra = [torch.empty(Q, dtype=torch.int64, device="cuda")
+                 .data_ptr()] if keys else []
+        err = dll.plade_nearest_neighbor(
+            q.data_ptr(), r.data_ptr(), d.data_ptr(), i.data_ptr(), *extra,
+            Q, r.shape[0], torch.cuda.current_stream().cuda_stream)
+        if err:
+            fail(f"parent K2 launch failed: {err}")
+        return d, i
+
+    def k1(q, qn, r, rn):
+        d = torch.empty(q.shape[0], device="cuda")
+        err = dll.plade_oriented_min_dist_sq(
+            q.data_ptr(), qn.data_ptr(), r.data_ptr(), rn.data_ptr(),
+            NORMAL_COS, d.data_ptr(), q.shape[0], r.shape[0],
+            torch.cuda.current_stream().cuda_stream)
+        if err:
+            fail(f"parent K1 launch failed: {err}")
+        return d
+
+    for row in rows:
+        Q, T = map(int, row["shape"].split("x"))
+        q, qn, r, rn = inputs[(Q, T)]
+        if row["name"] == "nearest_neighbor":
+            old = lambda: k2(q, r)                           # noqa: E731
+            new = lambda: nn.nearest_neighbor(q, r)          # noqa: E731
+        else:
+            old = lambda: k1(q, qn, r, rn)                   # noqa: E731
+            new = lambda: nn.oriented_min_dist_sq(           # noqa: E731
+                q, qn, r, rn, NORMAL_COS)
+        a, b = old(), new()
+        torch.cuda.synchronize()
+        same = all(torch.equal(x, y) for x, y in zip(a, b)) \
+            if isinstance(a, tuple) else torch.equal(a, b)
+        if not same:
+            fail(f"[b] parent and change differ: {row['name']} Q={Q} T={T}")
+        turns = [cuda_ms(f, 9) for f in (old, new, new, old)]
+        row["parent_ms"] = [turns[0], turns[3]]
+        print(f"[b] {row['name']} Q={Q} T={T}, parent vs change in turns: "
+              f"parent {turns[0]:.4f}, change {turns[1]:.4f}, change "
+              f"{turns[2]:.4f}, parent {turns[3]:.4f} ms (same bits)",
+              flush=True)
 
 
 def generator_labels(points, gen_planes, max_planes):
@@ -358,6 +521,40 @@ def cc_grids(L: int, G: int, seed: int) -> torch.Tensor:
     return torch.cat([fixed, rand]).cuda().contiguous()
 
 
+def k3_rounds(cc, occ: torch.Tensor, iters: int) -> torch.Tensor:
+    """(L,) rounds K3 runs on each lane of ``occ``: up to and including the
+    first round that changes no label, at most ``iters`` (the kernel's
+    early stop), found by stepping the plain version's round."""
+    L, G, _ = occ.shape
+    inf = G * G
+    lab = cc.close_and_label_lanes_plain(occ, 0)
+    closed = lab < inf
+    rounds = torch.full((L,), iters, dtype=torch.int64)
+    done = torch.zeros((L,), dtype=torch.bool)
+    for it in range(1, iters + 1):
+        m = torch.minimum(lab, torch.minimum(cc._shift(lab, 1, 0, inf),
+                                             cc._shift(lab, -1, 0, inf)))
+        m = torch.minimum(m, torch.minimum(cc._shift(m, 0, 1, inf),
+                                           cc._shift(m, 0, -1, inf)))
+        nxt = torch.where(closed, m, inf)
+        still = (nxt == lab).flatten(1).all(1).cpu()
+        rounds[still & ~done] = it
+        done |= still
+        lab = nxt
+        if done.all():
+            break
+    return rounds
+
+
+def k3_bound(occ: torch.Tensor, rounds: torch.Tensor):
+    """K3's bound for ``occ`` with ``rounds`` per lane: every cell of a lane
+    is closed once and visited by each round the lane runs (a chain of
+    rounds on one SM per lane, which this count does not see)."""
+    L, G, _ = occ.shape
+    ops = G * G * (K3_CLOSE_OPS * L + K3_ROUND_OPS * int(rounds.sum()))
+    return bound(ops, 2 * 4 * L * G * G)
+
+
 def check_cc(cc):
     """K3 and K3' against the plain version, bit for bit (integers)."""
     G, iters = 64, 256
@@ -391,13 +588,19 @@ def check_cc(cc):
             ms = cuda_ms(lambda: cc.close_and_label_lanes(occ, iters), 20)
             plain_ms = cuda_ms(
                 lambda: cc.close_and_label_lanes_plain(occ, iters))
-            print(f"[b] K3 L=6: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms",
-                  flush=True)
+            rounds = k3_rounds(cc, occ, iters)
+            bound_ms, bound_by = k3_bound(occ, rounds)
+            print(f"[b] K3 L=6: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
+                  f"rounds per lane {rounds.tolist()}, bound {bound_ms:.6f} "
+                  f"ms ({bound_by})", flush=True)
             rows.append({"name": "close_and_label_lanes", "route": "cuda",
                          "source": "plade_tpu_torch/csrc/cc.cu",
                          "replaces": "plade_tpu/kernels/cc.py:105",
+                         "shape": f"{L}x{G}x{G}",
                          "max_abs_err": (lab - plain).abs().max().item(),
-                         "ms": ms, "plain_ms": plain_ms})
+                         "ms": ms, "plain_ms": plain_ms,
+                         "bound_ms": bound_ms, "bound_by": bound_by,
+                         "library_ms": None})
     occ1 = cc_grids(4, G, seed=1)[3]
     lab1 = cc.close_and_label(occ1, iters)
     torch.cuda.synchronize()
@@ -407,13 +610,18 @@ def check_cc(cc):
     ms = cuda_ms(lambda: cc.close_and_label(occ1, iters), 20)
     plain_ms = cuda_ms(lambda: cc.close_and_label_lanes_plain(occ1[None],
                                                               iters))
+    rounds = k3_rounds(cc, occ1[None], iters)
+    bound_ms, bound_by = k3_bound(occ1[None], rounds)
     print(f"[b] K3' close_and_label L=1: bit-identical; kernel {ms:.4f} ms, "
-          f"plain {plain_ms:.3f} ms", flush=True)
+          f"plain {plain_ms:.3f} ms, {int(rounds[0])} rounds, bound "
+          f"{bound_ms:.6f} ms ({bound_by})", flush=True)
     rows.append({"name": "close_and_label", "route": "cuda",
                  "source": "plade_tpu_torch/csrc/cc.cu",
                  "replaces": "plade_tpu/kernels/cc.py:126",
+                 "shape": f"1x{G}x{G}",
                  "max_abs_err": (lab1 - plain1).abs().max().item(),
-                 "ms": ms, "plain_ms": plain_ms})
+                 "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                 "bound_by": bound_by, "library_ms": None})
     return rows
 
 
@@ -512,6 +720,25 @@ def recorded_extractions(ransac):
         ransac._cached_extractor = real
 
 
+@contextlib.contextmanager
+def recorded_calls(module, name, keep):
+    """Records ``keep(args, out)`` of every call of ``module.name`` made
+    inside the ``with`` block, in call order; the call is untouched."""
+    real = getattr(module, name)
+    seen = []
+
+    def wrapped(*args, **kwargs):
+        out = real(*args, **kwargs)
+        seen.append(keep(args, out))
+        return out
+
+    setattr(module, name, wrapped)
+    try:
+        yield seen
+    finally:
+        setattr(module, name, real)
+
+
 def check_register_clouds(tp, tn, sp, sn, R, t, gen, cfg, device):
     """(f) ``register_clouds`` on the raw clouds: one warm-up, three timed
     runs; extraction rounds and selected planes per cloud against the
@@ -519,10 +746,11 @@ def check_register_clouds(tp, tn, sp, sn, R, t, gen, cfg, device):
     host syncs of the first timed run, whose extractions are the ones
     checked.  (g) ``register_files`` on the same clouds written as PLY must
     give the same transform."""
+    from plade_tpu_torch import pipeline
     from plade_tpu_torch.core import types as ptypes
     from plade_tpu_torch.extract import ransac
     from plade_tpu_torch.io.ply import write_ply
-    from plade_tpu_torch.kernels import nn
+    from plade_tpu_torch.kernels import cc, nn
     from plade_tpu_torch.pipeline import register_clouds, register_files
 
     def sync():
@@ -537,7 +765,13 @@ def check_register_clouds(tp, tn, sp, sn, R, t, gen, cfg, device):
             for k in nn.LAUNCHES:
                 nn.LAUNCHES[k] = 0
             ptypes.HOST_SYNCS["count"] = 0
-        with recorded_extractions(ransac) as seen:
+        # the first timed run also keeps each prepared cloud's live
+        # downsampled count and each K3 input (device tensors: no sync)
+        with recorded_extractions(ransac) as seen, \
+                recorded_calls(pipeline, "prepare_cloud",
+                               lambda a, out: out.ds.count) as ds_counts, \
+                recorded_calls(ransac, "close_and_label_lanes",
+                               lambda a, out: (a[0].clone(), a[1])) as grids:
             sync()
             t0 = time.perf_counter()
             T, info = register_clouds(tp, tn, sp, sn, cfg, seed=0,
@@ -548,6 +782,8 @@ def check_register_clouds(tp, tn, sp, sn, R, t, gen, cfg, device):
             launches = dict(nn.LAUNCHES)
             syncs = ptypes.HOST_SYNCS["count"]
             extractions = seen
+            live = [int(c) for c in ds_counts]
+            k3_grids = grids
     check_result("[f]", T, info)
     if info["swapped"] or len(extractions) != 2:
         fail(f"[f] {len(extractions)} extractions (swapped "
@@ -592,6 +828,17 @@ def check_register_clouds(tp, tn, sp, sn, R, t, gen, cfg, device):
     print(f"[f] launches per registration: {launches}; host syncs {syncs}; "
           f"wall per pair (median of 3) {statistics.median(walls) * 1e3:.1f}"
           f" ms, runs {[round(w * 1e3, 1) for w in walls]} ms", flush=True)
+    print(f"[f] live downsampled points (target, source): {live} of "
+          f"max_ds_points {cfg.max_ds_points} (the K1/K2 rows past them are "
+          "padding)", flush=True)
+    if torch.device(device).type == "cuda":
+        lane_rounds = [k3_rounds(cc, occ, iters) for occ, iters in k3_grids]
+        ms_k3, by_k3 = k3_bound(torch.cat([o for o, _ in k3_grids]),
+                                torch.cat(lane_rounds))
+        print(f"[f] K3 on the main path: {len(k3_grids)} launches, lanes x "
+              f"grid {[tuple(o.shape) for o, _ in k3_grids]}, rounds per "
+              f"lane {[r.tolist() for r in lane_rounds]}; bound of all "
+              f"launches {ms_k3:.6f} ms ({by_k3})", flush=True)
     if rot >= ROT_TOL_DEG or trans >= TRANS_TOL:
         fail(f"[f] pose error {rot} deg / {trans} beyond {ROT_TOL_DEG} / "
              f"{TRANS_TOL}")
@@ -606,6 +853,24 @@ def check_register_clouds(tp, tn, sp, sn, R, t, gen, cfg, device):
         if launches["oriented_min_dist_sq"] < 2 \
                 or launches["nearest_neighbor"] < 4:
             fail(f"[f] kernel launches {launches} below K1 >= 2, K2 >= 4")
+
+    if torch.device(device).type == "cuda":
+        # the entry point's default device is the card
+        for k in nn.LAUNCHES:
+            nn.LAUNCHES[k] = 0
+        Td, info_d = register_clouds(tp, tn, sp, sn, cfg, seed=0)
+        default_launches = dict(nn.LAUNCHES)
+        check_result("[f] default device", Td, info_d)
+        drot, dtrans = pose_errors(Td, T[:3, :3].astype(np.float64), T[:3, 3])
+        print(f"[f] register_clouds without device=: launches "
+              f"{default_launches}, rotation diff {drot:.6f} deg, "
+              f"translation diff {dtrans:.3e} from device=\"cuda\"",
+              flush=True)
+        if min(default_launches.values()) < 1:
+            fail(f"[f] register_clouds without device= launched "
+                 f"{default_launches}: not on the card")
+        if drot >= FILES_TOL_DEG or dtrans >= FILES_TOL_T:
+            fail("[f] register_clouds without device= disagrees")
 
     # (g) register_files on the same clouds written as PLY
     with tempfile.TemporaryDirectory() as tmp:
@@ -624,6 +889,13 @@ def check_register_clouds(tp, tn, sp, sn, R, t, gen, cfg, device):
 
 
 def main():
+    import argparse
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument(
+        "--parent", type=Path, default=None,
+        help="a checkout of the parent tree: also time its K1/K2 "
+             "(csrc/nn.cu) against this tree's in phase (b)")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is false; this smoke run "
               "needs an NVIDIA GPU", flush=True)
@@ -646,7 +918,11 @@ def main():
           flush=True)
 
     # (b) kernels against their plain versions
-    rows = check_kernels(nn) + check_cc(cc)
+    rows, inputs = check_kernels(nn)
+    if args.parent is not None:
+        compare_parent(nn, args.parent, rows, inputs)
+    del inputs
+    rows += check_cc(cc)
 
     # (c) the slice at the default config
     cfg = PladeConfig()

@@ -110,14 +110,26 @@ def nearest_neighbor(queries: torch.Tensor, refs: torch.Tensor):
     Q, T = queries.shape[0], refs.shape[0]
     d = torch.empty((Q,), dtype=torch.float32, device=dev)
     i = torch.empty((Q,), dtype=torch.int32, device=dev)
+    # per query the (d2 bits, index) key the reference slices merge into;
+    # freed on return while the kernels may still run, which is safe: the
+    # caching allocator orders its reuse on this stream after them
+    keys = torch.empty((Q,), dtype=torch.int64, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = library().plade_nearest_neighbor(
             queries.data_ptr(), refs.data_ptr(), d.data_ptr(), i.data_ptr(),
-            Q, T, stream)
+            keys.data_ptr(), Q, T, stream)
     _raise_on("nearest_neighbor", err)
     LAUNCHES["nearest_neighbor"] += 1
     return d, i
+
+
+def reference_slices(Q: int, T: int, oriented: bool = False) -> int:
+    """Number of reference slices a K2 launch (K1 with ``oriented``) of Q
+    queries against T references splits into on the current CUDA device
+    (``csrc/nn.cu``)."""
+    from .build import library
+    return library().plade_nn_ref_slices(Q, T, int(oriented))
 
 
 def min_dist_sq(queries: torch.Tensor, refs: torch.Tensor) -> torch.Tensor:

@@ -218,7 +218,8 @@ def test_unported_options_raise(flag):
                             np.zeros(2, np.int32), np.int32(0),
                             np.full(4, -1, np.int32))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        register_with_planes(pts, pts, pts, pts, planes, planes, cfg)
+        register_with_planes(pts, pts, pts, pts, planes, planes, cfg,
+                             device="cpu")
     from plade_tpu_torch.pipeline import register_clouds
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        register_clouds(pts, pts, pts, pts, cfg)
+        register_clouds(pts, pts, pts, pts, cfg, device="cpu")

@@ -4,13 +4,13 @@ also run on a machine that has a GPU and no JAX:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 
-Without a card they skip.  Tolerance: d2 to 1e-6 relative, as the kernels
-and the plain versions compute d2 with the same operations in the same
-order (``csrc/nn.cu`` is built without fused multiply-add); an index may
-differ from the plain version's only where the two distances tie to that
-tolerance.  K3 is integer-only: its labels equal the plain version's
-exactly, also on a serpentine grid that 256 rounds leave unconverged (the
-kernel's early stop against the plain version's full count)."""
+Without a card they skip.  Every result must equal the plain version's bit
+for bit: the kernels and the plain versions compute d2 (and K1's normal
+dot) with the same operations in the same order (``csrc/nn.cu`` is built
+without fused multiply-add), K2's argmin takes the lowest index among ties
+also across the reference slices its atomic merge joins, and K3 is
+integer-only, also on a serpentine grid that 256 rounds leave unconverged
+(the kernel's early stop against the plain version's full count)."""
 import numpy as np
 import pytest
 import torch
@@ -19,29 +19,40 @@ from plade_tpu_torch.kernels import cc, nn
 
 
 def _inputs(Q, T, seed=0):
-    """Normal points with duplicated references (ties), queries on the
-    duplicates, one query whose normal disagrees with every reference
-    normal (+inf row), and BIG-padded references and queries."""
+    """Normal points with reference 5 duplicated at 10-19 and at
+    7 + 512 k (a copy in every reference slice), queries on the duplicate,
+    one query whose normal disagrees with every reference normal (+inf
+    row), and BIG-padded references and queries (where Q and T leave room
+    for them)."""
     rng = np.random.default_rng(seed)
     q = rng.normal(size=(Q, 3)).astype(np.float32)
     r = rng.normal(size=(T, 3)).astype(np.float32)
     qn = rng.normal(size=(Q, 3))
     rn = rng.normal(size=(T, 3))
     rn[:, 2] = np.abs(rn[:, 2]) + 0.5
-    r[10:20] = r[5]
-    q[0:4] = r[5]
-    qn[3] = [0.0, 0.0, -1.0]
-    r[-64:] = 1e8
-    q[-16:] = 1e8
+    pad_r, pad_q = (64 if T > 128 else 0), (16 if Q > 32 else 0)
+    if T > 20:
+        r[10:20] = r[5]
+        r[7:T - pad_r:512] = r[5]
+        q[0:min(Q, 4)] = r[5]
+    if Q > 3:
+        qn[3] = [0.0, 0.0, -1.0]
+    r[T - pad_r:] = 1e8
+    q[Q - pad_q:] = 1e8
     qn = qn / np.linalg.norm(qn, axis=1, keepdims=True)
     rn = rn / np.linalg.norm(rn, axis=1, keepdims=True)
-    rn[-64:] = 0.0
+    rn[T - pad_r:] = 0.0
     return [torch.from_numpy(np.ascontiguousarray(a, np.float32)).cuda()
             for a in (q, qn, r, rn)]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("Q,T", [(1000, 777), (4096, 16384)])
+@pytest.mark.parametrize("Q,T", [
+    (1000, 777), (4096, 16384),
+    (131071, 16383),      # ragged against the block's queries and the tile
+    (1, 16384), (4096, 1), (1, 1),
+    (1000, 200000),       # small Q, many references: the finest split
+])
 def test_cuda_kernels_match_plain(Q, T):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (run on the card)")
@@ -55,20 +66,38 @@ def test_cuda_kernels_match_plain(Q, T):
         == before["oriented_min_dist_sq"] + 1
 
     dp, ip = nn.nearest_neighbor_plain(q, r)
-    assert torch.isfinite(d).all()
-    torch.testing.assert_close(d, dp, rtol=1e-6, atol=0)
-    assert (i[0:4] == 5).all()                   # lowest tied index
-    assert int(i[:-16].max()) < T - 64            # padding never wins
-    qd, rd = q.double(), r.double()
-    da = ((qd - rd[i.long()]) ** 2).sum(1)
-    db = ((qd - rd[ip.long()]) ** 2).sum(1)
-    assert not ((i != ip) & ((da - db).abs() > 1e-6 * db)).any()
-
+    assert torch.equal(d, dp)
+    assert torch.equal(i, ip)
     op = nn.oriented_min_dist_sq_plain(q, qn, r, rn, 0.5)
-    fin = torch.isfinite(op)
-    assert torch.equal(torch.isfinite(o), fin)
-    assert not fin[3] and not torch.isnan(o).any()
-    torch.testing.assert_close(o[fin], op[fin], rtol=1e-6, atol=0)
+    assert torch.equal(o, op)
+    if T > 20:
+        assert (i[0:4] == 5).all()               # lowest tied index
+    if Q > 3:
+        assert torch.isinf(o[3])                  # no gate passes
+    if T > 128 and Q > 32:
+        assert int(i[:Q - 16].max()) < T - 64     # padding never wins
+
+
+@pytest.mark.cuda
+def test_cuda_reference_split_merges_ties_exactly():
+    """Few queries against many references split the references over the
+    most slices; reference 5's copy in every slice must lose to index 5,
+    and an all-equal reference set must give index 0 to every query."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card)")
+    Q, T = 64, 100000
+    assert nn.reference_slices(Q, T) > 1
+    assert nn.reference_slices(Q, T, oriented=True) > 1
+    q, qn, r, rn = _inputs(Q, T, seed=1)
+    d, i = nn.nearest_neighbor(q, r)
+    assert torch.equal(i, nn.nearest_neighbor_plain(q, r)[1])
+    assert (i[0:4] == 5).all()
+    same = torch.zeros((T, 3), device="cuda")
+    d, i = nn.nearest_neighbor(q, same)
+    assert (i == 0).all()
+    assert torch.equal(d, nn.nearest_neighbor_plain(q, same)[0])
+    o = nn.oriented_min_dist_sq(q, qn, r, rn, 0.5)
+    assert torch.equal(o, nn.oriented_min_dist_sq_plain(q, qn, r, rn, 0.5))
 
 
 def _serpentine(G):

@@ -88,7 +88,7 @@ def test_register_with_planes_matches_reference(reference, case):
     ref = reference[case]
     before = dict(nn.LAUNCHES)
     T, info = register_with_planes(*ref["clouds"], *ref["planes"],
-                                   config_from(SMALL_CFG))
+                                   config_from(SMALL_CFG), device="cpu")
     assert nn.LAUNCHES == before              # CPU tensors: plain versions
     want_T, want = ref["T"], ref["info"]
     assert info["success"] and want["success"]
@@ -152,7 +152,7 @@ def test_register_with_planes_too_few_planes(reference):
     tp, sp = ref["planes"]
     few = tp._replace(count=np.int32(2))
     T, info = register_with_planes(*ref["clouds"], few, sp,
-                                   config_from(SMALL_CFG))
+                                   config_from(SMALL_CFG), device="cpu")
     want_T, want = jregister(*ref["clouds"], JPlaneSet(*few),
                              ref["jplanes"][1], SMALL_CFG)
     np.testing.assert_array_equal(T, want_T)
@@ -166,4 +166,5 @@ def test_register_with_planes_rejects_oversized_cloud():
     planes = PlaneSet(np.zeros((2, 4), np.float32), np.zeros(2, np.int32),
                       np.int32(0), np.full(65, -1, np.int32))
     with pytest.raises(ValueError, match="max_points"):
-        register_with_planes(pts, pts, pts, pts, planes, planes, cfg)
+        register_with_planes(pts, pts, pts, pts, planes, planes, cfg,
+                             device="cpu")

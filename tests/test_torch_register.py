@@ -44,7 +44,8 @@ def _room_pair(seed):
 @pytest.mark.parametrize("seed", [0, 1])
 def test_register_clouds_synthetic_room(seed):
     pts, nrm, spts, snrm, R, t = _room_pair(seed)
-    T, info = register_clouds(pts, nrm, spts, snrm, CFG, seed=seed)
+    T, info = register_clouds(pts, nrm, spts, snrm, CFG, seed=seed,
+                              device="cpu")
     assert info["success"], info
     assert set(info) == INFO_KEYS
     assert rotation_error_deg(T[:3, :3], R) < 3.0
@@ -58,7 +59,8 @@ def test_register_clouds_identity_pair():
     pts, nrm, _ = make_room(rng, n_per_plane=1200, noise=0.002,
                             extra_planes=2)
     pts2 = pts + rng.normal(scale=0.002, size=pts.shape).astype(np.float32)
-    T, info = register_clouds(pts, nrm, pts2, nrm, CFG, seed=0)
+    T, info = register_clouds(pts, nrm, pts2, nrm, CFG, seed=0,
+                              device="cpu")
     assert info["success"], info
     assert rotation_error_deg(T[:3, :3], np.eye(3)) < 2.0
     assert np.linalg.norm(T[:3, 3]) < 0.1
@@ -75,7 +77,7 @@ def test_register_clouds_small_overlap(rng):
     R, t = random_rigid(rng, max_angle=1.0, max_trans=0.5)
     spts, snrm = transform_cloud(pts[src_sel], nrm[src_sel], R.T, -R.T @ t)
     T, info = register_clouds(pts[tgt_sel], nrm[tgt_sel], spts, snrm, CFG,
-                              seed=0)
+                              seed=0, device="cpu")
     assert info["success"], info
     assert rotation_error_deg(T[:3, :3], R) < 3.0
     assert np.linalg.norm(T[:3, 3] - t) < 0.15

@@ -42,7 +42,8 @@ def test_register_clouds_swaps_larger_source():
     the transform inverted back (plade.cpp:690-704)."""
     pts, nrm, spts, snrm, R, t = _small_pair(0)
     keep = np.random.default_rng(5).random(pts.shape[0]) < 0.7
-    T, info = register_clouds(pts[keep], nrm[keep], spts, snrm, CFG, seed=0)
+    T, info = register_clouds(pts[keep], nrm[keep], spts, snrm, CFG, seed=0,
+                              device="cpu")
     assert info["swapped"] and info["success"], info
     assert rotation_error_deg(T[:3, :3], R) < 3.0
     assert np.linalg.norm(T[:3, 3] - t) < 0.15
@@ -54,7 +55,8 @@ def test_register_clouds_too_few_planes():
     blob = rng.normal(size=(2000, 3)).astype(np.float32)
     nrm = rng.normal(size=(2000, 3)).astype(np.float32)
     nrm /= np.linalg.norm(nrm, axis=1, keepdims=True)
-    T, info = register_clouds(blob, nrm, blob + 0.1, nrm, CFG, seed=0)
+    T, info = register_clouds(blob, nrm, blob + 0.1, nrm, CFG, seed=0,
+                              device="cpu")
     np.testing.assert_array_equal(T, np.eye(4, dtype=np.float32))
     assert info["failure"] == "too few planes"
     assert min(info["tgt_planes"], info["src_planes"]) < CFG.min_planes
@@ -69,7 +71,7 @@ def test_register_clouds_capped_cloud_is_reported():
     nrm = blob / np.linalg.norm(blob, axis=1, keepdims=True)
     cfg = dataclasses.replace(CFG, max_points=4096)
     T, info = register_clouds(blob, nrm, blob[:4500], nrm[:4500], cfg,
-                              seed=0)
+                              seed=0, device="cpu")
     assert info["cloud_capped"] == {"target": True, "source": True,
                                     "max_points": 4096}
     assert info["failure"] == "too few planes"
@@ -78,7 +80,8 @@ def test_register_clouds_capped_cloud_is_reported():
 def test_register_clouds_pinned_support_not_ported():
     pts = np.zeros((8, 3), np.float32)
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, step 10"):
-        register_clouds(pts, pts, pts, pts, CFG, ransac_min_support=400)
+        register_clouds(pts, pts, pts, pts, CFG, ransac_min_support=400,
+                        device="cpu")
 
 
 def test_register_files_ply_round_trip(tmp_path):
@@ -86,11 +89,12 @@ def test_register_files_ply_round_trip(tmp_path):
     write_ply(str(tmp_path / "target.ply"), pts, nrm)
     write_ply(str(tmp_path / "source.ply"), spts, snrm, binary=False)
     T, info = register_files(str(tmp_path / "target.ply"),
-                             str(tmp_path / "source.ply"), CFG, seed=1)
+                             str(tmp_path / "source.ply"), CFG, seed=1,
+                             device="cpu")
     assert info["success"], info
     assert rotation_error_deg(T[:3, :3], R) < 3.0
     assert np.linalg.norm(T[:3, 3] - t) < 0.15
     write_ply(str(tmp_path / "bare.ply"), pts)
     with pytest.raises(ValueError, match="normals"):
         register_files(str(tmp_path / "bare.ply"),
-                       str(tmp_path / "source.ply"), CFG)
+                       str(tmp_path / "source.ply"), CFG, device="cpu")

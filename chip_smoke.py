@@ -15,12 +15,16 @@ Phases, in order; any failed check exits non-zero:
     win across the kernels' atomic merge); time each at the main shapes
     beside its plain version, its bound and, for K2, the yardstick
     ``torch.cdist(q, r).min(dim=1)``.  With ``--parent DIR`` (a checkout of
-    the parent tree), also build DIR's ``csrc/nn.cu`` and time its K1/K2
-    against this tree's in turns on the same inputs.  K3 (close +
-    connected-component labelling) bit for bit at G = 64 and 256 rounds,
-    for L = 6 and L = 12, on random occupancies, an empty and a full grid
-    and a serpentine grid that 256 rounds do not converge, and K3' at
-    L = 1, each with the rounds its lanes need and its bound;
+    the parent tree), also build DIR's ``csrc/nn.cu`` and ``csrc/cc.cu``
+    and time its K1/K2/K3 against this tree's in turns on the same inputs
+    (same bits required).  K3 (close + connected-component labelling) bit
+    for bit at 256 rounds: at G = 32, 48 and 128 on L = 6 and at G = 64 on
+    L = 6 and 12, on random occupancies, an empty and a full grid and a
+    serpentine grid that 256 rounds do not converge; K3' at L = 1; each
+    timed as calls queued back to back, with the rounds its lanes
+    need, its bound and its chain bound (the slowest lane's rounds on one
+    SM at the SM clock nvidia-smi reads under it, and at the rate of
+    K3's packed 16-bit minimum that a probe measures on one SM);
 (c) register a synthetic room (two disjoint halves of 96k points, the
     source moved by a known rigid transform, planes labelled from the
     generator planes) with ``register_with_planes`` at the default
@@ -40,6 +44,9 @@ Phases, in order; any failed check exits non-zero:
     syncs, pose error and counters, the live downsampled points of both
     clouds and the rounds K3's lanes needed; then one call without
     ``device=``, which must launch the kernels (the default is the card);
+    K3 on the grids of that run's launches: bit for bit against the plain
+    version (and the parent's), each launch timed, both bounds, and with
+    ``--parent`` the launches' sum in turns;
 (g) write the scene as PLY files and require ``register_files`` to give
     the transform of ``register_clouds``;
 (h) profile one ``register_clouds`` (its stage table has ``plade.extract``).
@@ -85,10 +92,50 @@ EDGE_SHAPES = ((131071, 16383), (1, 16384), (131072, 1), (1, 1),
 #: 3 products, 2 additions; K1 those and the 3-term normal dot
 K2_FLOP = 8
 K1_FLOP = 13
-#: integer operations a cell of a K3 round (the 8 minima of the 3 x 3
-#: window), and a cell of the close (4 ORs, 4 ANDs, 1 OR)
-K3_ROUND_OPS = 8
+#: integer operations a cell of a K3 round (the 4 minima of the separable
+#: 3 x 3 min: two down the column, two along the row; the closed-mask
+#: select is not counted), and a cell of the close (4 ORs, 4 ANDs, 1 OR)
+K3_ROUND_OPS = 4
 K3_CLOSE_OPS = 9
+#: most instructions one SM issues a clock (4 schedulers x one warp of 32)
+SM_ISSUE = 128
+#: a probe of the rate of K3's packed minimum (``min.u16x2``, two 16-bit
+#: minima an instruction) on one SM: 1024 threads run independent chains
+#: and thread 0 counts the clocks (clock64) between two barriers around them
+VMIN2_PROBE = r'''
+#include <cuda_runtime.h>
+constexpr int kChains = 8, kUnroll = 16;
+__global__ void probe(unsigned* out, long long* clocks, int n) {
+  unsigned a[kChains];
+  for (int j = 0; j < kChains; ++j) a[j] = threadIdx.x * 0x10001u + j;
+  __syncthreads();
+  const long long t0 = clock64();
+  for (int i = 0; i < n; ++i) {
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u)
+#pragma unroll
+      for (int j = 0; j < kChains; ++j)
+        asm volatile("min.u16x2 %0, %0, %1;"
+                     : "+r"(a[j]) : "r"(a[(j + 1) % kChains]));
+  }
+  __syncthreads();
+  const long long t1 = clock64();
+  unsigned x = 0;
+  for (int j = 0; j < kChains; ++j) x ^= a[j];
+  out[threadIdx.x] = x;
+  if (threadIdx.x == 0) clocks[0] = t1 - t0;
+}
+// min.u16x2 a clock on the SM that ran the block, after n x 128 per thread
+extern "C" double plade_vmin2_rate(unsigned* out, long long* clocks, int n,
+                                   int threads) {
+  probe<<<1, threads>>>(out, clocks, n);
+  long long c = 0;
+  if (cudaMemcpy(&c, clocks, sizeof c, cudaMemcpyDeviceToHost) !=
+      cudaSuccess || c <= 0)
+    return -1.0;
+  return static_cast<double>(threads) * n * kUnroll * kChains / c;
+}
+'''
 NORMAL_COS = 0.7071067811865476
 ROT_TOL_DEG = 1.0
 TRANS_TOL = 0.05
@@ -128,6 +175,37 @@ def cuda_ms(fn, reps: int = 5) -> float:
         end.record()
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def queued_ms(fn, reps: int = 20, batches: int = 5) -> float:
+    """Device time of one call of ``fn``, in ms: ``reps`` calls queued
+    behind a spinning kernel, so that the device runs them back to back
+    whatever the host's enqueue time (as long as a short kernel), timed by
+    events over the batch, which adds the device's gap between launches;
+    the median of ``batches``."""
+    fn()
+    times = []
+    for _ in range(batches):
+        # a batch that the device drained (a host stall outlasted the spin)
+        # is run again behind a longer spin
+        for spin in (5_000_000, 20_000_000, 80_000_000):  # 2.5, 10, 40 ms
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(spin)
+            start.record()
+            for _ in range(reps):
+                fn()
+            drained = torch.cuda.current_stream().query()
+            end.record()
+            torch.cuda.synchronize()
+            if not drained:
+                break
+        else:
+            fail("queued_ms: the device ran dry while the host enqueued, "
+                 "three times in a row")
+        times.append(start.elapsed_time(end) / reps)
     return statistics.median(times)
 
 
@@ -275,32 +353,52 @@ def check_kernels(nn):
     return rows, inputs
 
 
-def parent_nn_library(parent: Path):
-    """The parent tree's ``csrc/nn.cu`` built with this tree's flags into
-    its own library, with its entry points' signatures (the first port's
-    K2 takes no key scratch)."""
+def parent_libraries(parent: Path):
+    """The parent tree's ``csrc/nn.cu`` and ``csrc/cc.cu`` built with this
+    tree's flags into libraries of their own (one nvcc each, in parallel),
+    with their entry points' signatures (the first port's K2 takes no key
+    scratch).  Returns (nn library, whether K2 takes keys, cc library)."""
     import ctypes
 
     from plade_tpu_torch.kernels import build
-    src = parent / "plade_tpu_torch" / "csrc" / "nn.cu"
-    lib = build.BUILD_DIR / "libparent_nn.so"
-    subprocess.run([build.find_nvcc(), *build.NVCC_FLAGS, "-shared", "-o",
-                    str(lib), str(src)], check=True, timeout=600)
-    dll = ctypes.CDLL(str(lib))
+    libs = {name: build.BUILD_DIR / f"libparent_{name}.so"
+            for name in ("nn", "cc")}
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    build._run([[build.find_nvcc(), *build.NVCC_FLAGS, "-shared", "-o",
+                 str(lib), str(parent / "plade_tpu_torch" / "csrc" /
+                               f"{name}.cu")]
+                for name, lib in libs.items()])
+    dll = ctypes.CDLL(str(libs["nn"]))
     P, I = ctypes.c_void_p, ctypes.c_int
     keys = hasattr(dll, "plade_nn_ref_slices")
     dll.plade_nearest_neighbor.argtypes = \
         [P, P, P, P] + ([P] if keys else []) + [I, I, P]
     dll.plade_oriented_min_dist_sq.argtypes = \
         [P, P, P, P, ctypes.c_float, P, I, I, P]
-    return dll, keys
+    cc_dll = ctypes.CDLL(str(libs["cc"]))
+    cc_dll.plade_close_and_label.argtypes = [P, P, I, I, I, P]
+    return dll, keys, cc_dll
 
 
-def compare_parent(nn, parent: Path, rows, inputs):
-    """The parent's K1/K2 against this tree's, on the inputs of (b): the
-    same bits, and each shape timed in turns parent, change, change,
-    parent.  Adds ``parent_ms`` (the two parent medians) to the rows."""
-    dll, keys = parent_nn_library(parent)
+def parent_k3(cc_dll):
+    """The parent's K3 as a function of (occ, iters), like
+    ``close_and_label_lanes`` (counts no launch)."""
+    def run(occ, iters):
+        out = torch.empty_like(occ)
+        err = cc_dll.plade_close_and_label(
+            occ.data_ptr(), out.data_ptr(), occ.shape[0], occ.shape[1],
+            iters, torch.cuda.current_stream().cuda_stream)
+        if err:
+            fail(f"parent K3 launch failed: {err}")
+        return out
+    return run
+
+
+def compare_parent(nn, dll, keys, rows, inputs):
+    """The parent's K1/K2 (``dll``) against this tree's, on the inputs of
+    (b): the same bits, and each shape timed in turns parent, change,
+    change, parent.  Adds ``parent_ms`` (the two parent medians) to the
+    rows."""
 
     def k2(q, r):
         Q = q.shape[0]
@@ -555,9 +653,81 @@ def k3_bound(occ: torch.Tensor, rounds: torch.Tensor):
     return bound(ops, 2 * 4 * L * G * G)
 
 
-def check_cc(cc):
-    """K3 and K3' against the plain version, bit for bit (integers)."""
-    G, iters = 64, 256
+def k3_chain_bound(launches, clock_mhz: float, per_clock: float) -> float:
+    """K3's least time on one SM per lane, in ms, for ``launches`` of
+    (occ, rounds per lane): each launch takes its slowest lane's rounds of
+    G * G cells x K3_ROUND_OPS, plus the close, at one SM's ``per_clock``
+    cell operations a clock at ``clock_mhz``."""
+    ops = sum(occ.shape[1] ** 2 * (K3_ROUND_OPS * int(rounds.max())
+                                   + K3_CLOSE_OPS)
+              for occ, rounds in launches)
+    return ops / (per_clock * clock_mhz * 1e6) * 1e3
+
+
+def cell_ops_per_clock() -> float:
+    """Cell minima one SM takes a clock: twice the rate of ``min.u16x2``
+    that ``VMIN2_PROBE`` measures on the card.  Fails if the rate exceeds
+    the SM's issue ceiling (the probe's minima were not all issued)."""
+    import ctypes
+
+    from plade_tpu_torch.kernels import build
+    src = build.BUILD_DIR / "vmin2_probe.cu"
+    lib = build.BUILD_DIR / "libvmin2_probe.so"
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    src.write_text(VMIN2_PROBE)
+    build._run([[build.find_nvcc(), *build.NVCC_FLAGS, "-shared", "-o",
+                 str(lib), str(src)]])
+    dll = ctypes.CDLL(str(lib))
+    dll.plade_vmin2_rate.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                     ctypes.c_int, ctypes.c_int]
+    dll.plade_vmin2_rate.restype = ctypes.c_double
+    threads = 1024
+    out = torch.empty(threads, dtype=torch.int32, device="cuda")
+    clocks = torch.zeros(1, dtype=torch.int64, device="cuda")
+    rates = [dll.plade_vmin2_rate(out.data_ptr(), clocks.data_ptr(), 4096,
+                                  threads) for _ in range(4)]
+    rate = statistics.median(rates[1:])
+    print(f"[b] min.u16x2 on one SM: {rate:.2f} a clock (runs "
+          f"{[round(r, 2) for r in rates]}; issue ceiling {SM_ISSUE}), so "
+          f"{2 * rate:.2f} cell minima a clock", flush=True)
+    if not 0 < rate <= SM_ISSUE * 1.01:
+        fail(f"min.u16x2 probe: {rate} a clock is outside (0, {SM_ISSUE}]")
+    return 2 * rate
+
+
+def sm_clock_mhz(fn) -> float:
+    """The SM clock in MHz that nvidia-smi reads during back-to-back calls
+    of ``fn`` (printed with the power draw)."""
+    reading = sm_clock_under(fn)
+    print(f"    SM clock, power under it: {reading}", flush=True)
+    return float(reading.split()[0])
+
+
+def k3_turns(fns, grids):
+    """Device time of the launches ``fn(occ, iters)`` over ``grids`` (a
+    list of (occ, iters)), summed, for each ``fn`` in turn."""
+    return [sum(queued_ms(lambda: fn(occ, iters), 9) for occ, iters in grids)
+            for fn in fns]
+
+
+def check_cc(cc, per_clock: float, old_k3=None):
+    """K3 and K3' against the plain version, bit for bit (integers), at
+    G = 32, 48 and 128 (the generic instance) on L = 6 and at G = 64 on
+    L = 6 and 12; times, rounds, both bounds (the chain bound at
+    ``per_clock`` cell operations a clock) and, with ``old_k3`` (the
+    parent's K3), the same bits and times in turns at G = 64, L = 6.
+    Returns the rows of the kernels' JSON line."""
+    iters = 256
+    for G in (32, 48, 128):
+        occ = cc_grids(6, G, seed=G)
+        lab = cc.close_and_label_lanes(occ, iters)
+        torch.cuda.synchronize()
+        if not torch.equal(lab, cc.close_and_label_lanes_plain(occ, iters)):
+            fail(f"close_and_label_lanes L=6 G={G} differs from the plain "
+                 "version")
+        print(f"[b] K3 close_and_label_lanes L=6 G={G} iters={iters}: "
+              "bit-identical to the plain version", flush=True)
+    G = 64
     rows = []
     for L in (6, 12):
         occ = cc_grids(L, G, seed=L)
@@ -585,14 +755,19 @@ def check_cc(cc):
               f"{int((torch.unique(lab[5]) < G * G).sum())}",
               flush=True)
         if L == 6:
-            ms = cuda_ms(lambda: cc.close_and_label_lanes(occ, iters), 20)
+            ms = queued_ms(lambda: cc.close_and_label_lanes(occ, iters))
             plain_ms = cuda_ms(
                 lambda: cc.close_and_label_lanes_plain(occ, iters))
             rounds = k3_rounds(cc, occ, iters)
             bound_ms, bound_by = k3_bound(occ, rounds)
+            clock = sm_clock_mhz(lambda: cc.close_and_label_lanes(occ, iters))
+            chain_ms = k3_chain_bound([(occ, rounds)], clock, per_clock)
             print(f"[b] K3 L=6: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
-                  f"rounds per lane {rounds.tolist()}, bound {bound_ms:.6f} "
-                  f"ms ({bound_by})", flush=True)
+                  f"rounds per lane {rounds.tolist()}, "
+                  f"{ms * 1e3 / int(rounds.max()):.4f} us a round of the "
+                  f"slowest lane; bound {bound_ms:.6f} ms ({bound_by}), "
+                  f"chain bound {chain_ms:.6f} ms at {clock:.0f} MHz",
+                  flush=True)
             rows.append({"name": "close_and_label_lanes", "route": "cuda",
                          "source": "plade_tpu_torch/csrc/cc.cu",
                          "replaces": "plade_tpu/kernels/cc.py:105",
@@ -600,29 +775,106 @@ def check_cc(cc):
                          "max_abs_err": (lab - plain).abs().max().item(),
                          "ms": ms, "plain_ms": plain_ms,
                          "bound_ms": bound_ms, "bound_by": bound_by,
-                         "library_ms": None})
+                         "chain_bound_ms": chain_ms, "sm_clock_mhz": clock,
+                         "cell_ops_per_clock": per_clock,
+                         "rounds": int(rounds.max()), "library_ms": None})
+            if old_k3 is not None:
+                if not torch.equal(old_k3(occ, iters), lab):
+                    fail("[b] K3: parent and change differ")
+                new_k3 = cc.close_and_label_lanes
+                turns = k3_turns([old_k3, new_k3, new_k3, old_k3],
+                                 [(occ, iters)])
+                rows[-1]["parent_ms"] = [turns[0], turns[3]]
+                print(f"[b] K3 L=6, parent vs change in turns: parent "
+                      f"{turns[0]:.4f}, change {turns[1]:.4f}, change "
+                      f"{turns[2]:.4f}, parent {turns[3]:.4f} ms (same bits)",
+                      flush=True)
     occ1 = cc_grids(4, G, seed=1)[3]
     lab1 = cc.close_and_label(occ1, iters)
     torch.cuda.synchronize()
     plain1 = cc.close_and_label_lanes_plain(occ1[None], iters)[0]
     if not torch.equal(lab1, plain1):
         fail("close_and_label (L=1) differs from the plain version")
-    ms = cuda_ms(lambda: cc.close_and_label(occ1, iters), 20)
+    ms = queued_ms(lambda: cc.close_and_label(occ1, iters))
     plain_ms = cuda_ms(lambda: cc.close_and_label_lanes_plain(occ1[None],
                                                               iters))
     rounds = k3_rounds(cc, occ1[None], iters)
     bound_ms, bound_by = k3_bound(occ1[None], rounds)
+    chain_ms = k3_chain_bound([(occ1[None], rounds)], clock, per_clock)
     print(f"[b] K3' close_and_label L=1: bit-identical; kernel {ms:.4f} ms, "
           f"plain {plain_ms:.3f} ms, {int(rounds[0])} rounds, bound "
-          f"{bound_ms:.6f} ms ({bound_by})", flush=True)
+          f"{bound_ms:.6f} ms ({bound_by}), chain bound {chain_ms:.6f} ms at "
+          f"{clock:.0f} MHz", flush=True)
     rows.append({"name": "close_and_label", "route": "cuda",
                  "source": "plade_tpu_torch/csrc/cc.cu",
                  "replaces": "plade_tpu/kernels/cc.py:126",
                  "shape": f"1x{G}x{G}",
                  "max_abs_err": (lab1 - plain1).abs().max().item(),
                  "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                 "bound_by": bound_by, "library_ms": None})
+                 "bound_by": bound_by, "chain_bound_ms": chain_ms,
+                 "sm_clock_mhz": clock, "cell_ops_per_clock": per_clock,
+                 "rounds": int(rounds[0]),
+                 "library_ms": None})
     return rows
+
+
+def k3_main_path(cc, grids, per_clock: float, old_k3=None):
+    """K3 on the grids of the main path's launches (``grids``: (occ,
+    iters) of each launch of a timed ``register_clouds``): bit for bit
+    against the plain version (and the parent's K3), the time of each
+    launch and their sum, the rounds, both bounds (the chain bound at
+    ``per_clock`` cell operations a clock), and with ``old_k3`` the sum
+    timed in turns.  Returns the row of the kernels' JSON line."""
+    lane_rounds = []
+    err = 0
+    for occ, iters in grids:
+        lab = cc.close_and_label_lanes(occ, iters)
+        torch.cuda.synchronize()
+        plain = cc.close_and_label_lanes_plain(occ, iters)
+        err = max(err, (lab - plain).abs().max().item())
+        if not torch.equal(lab, plain):
+            fail("[f] K3 differs from the plain version on a main-path grid")
+        if old_k3 is not None and not torch.equal(old_k3(occ, iters), lab):
+            fail("[f] K3: parent and change differ on a main-path grid")
+        lane_rounds.append(k3_rounds(cc, occ, iters))
+    launch_ms = [queued_ms(lambda: cc.close_and_label_lanes(occ, iters))
+                 for occ, iters in grids]
+    plain_ms = sum(cuda_ms(lambda: cc.close_and_label_lanes_plain(occ, iters))
+                   for occ, iters in grids)
+    bound_ms, bound_by = k3_bound(torch.cat([o for o, _ in grids]),
+                                  torch.cat(lane_rounds))
+    slowest = max(zip(lane_rounds, grids), key=lambda x: int(x[0].max()))[1]
+    clock = sm_clock_mhz(lambda: cc.close_and_label_lanes(*slowest))
+    chain_ms = k3_chain_bound(
+        [(o, r) for (o, _), r in zip(grids, lane_rounds)], clock,
+        per_clock)
+    print(f"[f] K3 on the main path: {len(grids)} launches, lanes x grid "
+          f"{[tuple(o.shape) for o, _ in grids]}, rounds per lane "
+          f"{[r.tolist() for r in lane_rounds]}; bit-identical to the plain "
+          f"version; kernel ms per launch "
+          f"{[round(t, 4) for t in launch_ms]}, sum {sum(launch_ms):.4f} ms, "
+          f"plain {plain_ms:.3f} ms; bound of all launches {bound_ms:.6f} ms "
+          f"({bound_by}), chain bound {chain_ms:.6f} ms at {clock:.0f} MHz",
+          flush=True)
+    L, G, _ = grids[0][0].shape
+    row = {"name": "close_and_label_lanes", "route": "cuda",
+           "source": "plade_tpu_torch/csrc/cc.cu",
+           "replaces": "plade_tpu/kernels/cc.py:105",
+           "shape": f"main path: {len(grids)} launches of {L}x{G}x{G}",
+           "max_abs_err": err, "ms": sum(launch_ms), "launch_ms": launch_ms,
+           "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+           "chain_bound_ms": chain_ms, "sm_clock_mhz": clock,
+           "cell_ops_per_clock": per_clock,
+           "rounds": [int(r.max()) for r in lane_rounds], "library_ms": None}
+    if old_k3 is not None:
+        new_k3 = cc.close_and_label_lanes
+        turns = k3_turns([old_k3, new_k3, new_k3, old_k3], grids)
+        row["parent_ms"] = [turns[0], turns[3]]
+        print(f"[f] K3 main-path launches summed, parent vs change in turns: "
+              f"parent {turns[0]:.4f}, change {turns[1]:.4f}, change "
+              f"{turns[2]:.4f}, parent {turns[3]:.4f} ms (same bits)",
+              flush=True)
+    return row
 
 
 def extract_card_vs_cpu(pts, nrm, cfg, side):
@@ -745,12 +997,13 @@ def check_register_clouds(tp, tn, sp, sn, R, t, gen, cfg, device):
     scene's planes; pose error, counters, kernel launches (returned) and
     host syncs of the first timed run, whose extractions are the ones
     checked.  (g) ``register_files`` on the same clouds written as PLY must
-    give the same transform."""
+    give the same transform.  Returns (launches, the (occ, iters) of each
+    K3 launch of that run)."""
     from plade_tpu_torch import pipeline
     from plade_tpu_torch.core import types as ptypes
     from plade_tpu_torch.extract import ransac
     from plade_tpu_torch.io.ply import write_ply
-    from plade_tpu_torch.kernels import cc, nn
+    from plade_tpu_torch.kernels import nn
     from plade_tpu_torch.pipeline import register_clouds, register_files
 
     def sync():
@@ -831,14 +1084,6 @@ def check_register_clouds(tp, tn, sp, sn, R, t, gen, cfg, device):
     print(f"[f] live downsampled points (target, source): {live} of "
           f"max_ds_points {cfg.max_ds_points} (the K1/K2 rows past them are "
           "padding)", flush=True)
-    if torch.device(device).type == "cuda":
-        lane_rounds = [k3_rounds(cc, occ, iters) for occ, iters in k3_grids]
-        ms_k3, by_k3 = k3_bound(torch.cat([o for o, _ in k3_grids]),
-                                torch.cat(lane_rounds))
-        print(f"[f] K3 on the main path: {len(k3_grids)} launches, lanes x "
-              f"grid {[tuple(o.shape) for o, _ in k3_grids]}, rounds per "
-              f"lane {[r.tolist() for r in lane_rounds]}; bound of all "
-              f"launches {ms_k3:.6f} ms ({by_k3})", flush=True)
     if rot >= ROT_TOL_DEG or trans >= TRANS_TOL:
         fail(f"[f] pose error {rot} deg / {trans} beyond {ROT_TOL_DEG} / "
              f"{TRANS_TOL}")
@@ -885,7 +1130,7 @@ def check_register_clouds(tp, tn, sp, sn, R, t, gen, cfg, device):
           f"{drot:.6f} deg, translation diff {dtrans:.3e}", flush=True)
     if drot >= FILES_TOL_DEG or dtrans >= FILES_TOL_T:
         fail("[g] register_files disagrees with register_clouds")
-    return launches
+    return launches, k3_grids
 
 
 def main():
@@ -893,13 +1138,19 @@ def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument(
         "--parent", type=Path, default=None,
-        help="a checkout of the parent tree: also time its K1/K2 "
-             "(csrc/nn.cu) against this tree's in phase (b)")
+        help="a checkout of the parent tree: also build its csrc/nn.cu and "
+             "csrc/cc.cu and time its K1/K2/K3 against this tree's in "
+             "turns, in phases (b) and (f)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is false; this smoke run "
               "needs an NVIDIA GPU", flush=True)
         sys.exit(2)
+    try:
+        import plade_tpu_torch  # noqa: F401
+    except ModuleNotFoundError:
+        fail("plade_tpu_torch is not beside chip_smoke.py: run the script "
+             "from the root of a checkout of the repository")
     from plade_tpu_torch.core import types as ptypes
     from plade_tpu_torch.core.config import PladeConfig
     from plade_tpu_torch.io import synthetic as syn
@@ -919,10 +1170,14 @@ def main():
 
     # (b) kernels against their plain versions
     rows, inputs = check_kernels(nn)
+    old_k3 = None
     if args.parent is not None:
-        compare_parent(nn, args.parent, rows, inputs)
+        nn_dll, keys, cc_dll = parent_libraries(args.parent)
+        compare_parent(nn, nn_dll, keys, rows, inputs)
+        old_k3 = parent_k3(cc_dll)
     del inputs
-    rows += check_cc(cc)
+    per_clock = cell_ops_per_clock()
+    rows += check_cc(cc, per_clock, old_k3)
 
     # (c) the slice at the default config
     cfg = PladeConfig()
@@ -1001,8 +1256,9 @@ def main():
         extract_card_vs_cpu(pts, nrm, small, side)
 
     # (f) register_clouds and (g) register_files on the scene of (c)
-    launches = check_register_clouds(tp, tn, sp, sn, R, t, gen, cfg,
-                                     "cuda")
+    launches, k3_grids = check_register_clouds(tp, tn, sp, sn, R, t, gen,
+                                               cfg, "cuda")
+    rows.append(k3_main_path(cc, k3_grids, per_clock, old_k3))
     for row in rows:
         row["launches"] = launches.get(row["name"], 0)
         row["launches_by_path"] = {

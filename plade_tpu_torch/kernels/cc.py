@@ -23,7 +23,9 @@ import torch.nn.functional as F
 
 from .build import LAUNCHES
 
-#: largest grid side the kernel takes (its shared memory holds the grid)
+#: largest grid side the kernel takes (it packs labels <= G * G into 16-bit
+#: halves; G = 32 and 64 are specialised, other sides run the G = 128
+#: layout)
 MAX_GRID = 128
 
 

@@ -2,10 +2,12 @@
 the CPU, against the reference package.
 
 * The plain K3 against ``close_and_label_lanes(interpret=True)`` (the
-  Pallas kernel run on the CPU) at L = 6, G = 64, with 256 and 8 rounds, on
-  random grids, an empty and a full grid and a serpentine grid that 256
-  rounds leave unconverged; K3' against ``close_and_label(interpret=True)``
-  and a numpy flood fill.  Labels are integers: exact.
+  Pallas kernel run on the CPU) at L = 11, G = 64 and 48, with 256 and 8
+  rounds, on random grids, an empty and a full grid, a serpentine grid
+  that 256 rounds leave unconverged and the grids built to break the CUDA
+  kernel's strips and words (``cc_grids.edge_grids``); K3' against
+  ``close_and_label(interpret=True)`` and a numpy flood fill.  Labels are
+  integers: exact.
 * ``_trim_bitmap``, ``_trim_select`` and ``_largest_component_masks``
   against the reference's, the reference side assembled as
   ``_trim_bitmap`` -> ``close_and_label_lanes(interpret=True)`` ->
@@ -21,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 
+import cc_grids
 from plade_tpu.extract import ransac as jr
 from plade_tpu.kernels import cc as jcc
 from plade_tpu_torch.extract import ransac
@@ -37,31 +40,13 @@ def _no_launches():
     assert cc.LAUNCHES == before, "a CPU tensor counted a kernel launch"
 
 
-def _serpentine(G):
-    """One winding component: full rows every 4 rows (3 empty rows stay
-    open under the close), joined at alternating ends; its path is about
-    G * G / 4 cells long."""
-    occ = np.zeros((G, G), np.int32)
-    for k, r in enumerate(range(0, G, 4)):
-        occ[r] = 1
-        if r + 4 < G:
-            occ[r + 1:r + 4, G - 1 if k % 2 == 0 else 0] = 1
-    return occ
-
-
-def _grids(rng, L=6):
-    """Serpentine, empty, full, then random counts (0-3) at densities
-    spread over 0.05-0.6."""
-    fixed = [_serpentine(G), np.zeros((G, G), np.int32),
-             np.ones((G, G), np.int32)]
-    rand = [((rng.random((G, G)) < d) * rng.integers(1, 4, (G, G)))
-            .astype(np.int32) for d in np.linspace(0.05, 0.6, L - 3)]
-    return np.stack(fixed + rand)
-
-
+@pytest.mark.parametrize("G", [64, 48])
 @pytest.mark.parametrize("iters", [256, 8])
-def test_close_and_label_lanes_plain_matches_pallas(rng, iters):
-    occ = _grids(rng)
+def test_close_and_label_lanes_plain_matches_pallas(iters, G):
+    """The serpentine, empty and full grids, the edge grids of
+    ``cc_grids.edge_grids`` and three random grids; G = 48 is a side the
+    CUDA kernel takes through its generic instance."""
+    occ = cc_grids.grids(11, G, seed=iters)
     want = np.asarray(jcc.close_and_label_lanes(jnp.asarray(occ), iters=iters,
                                                 interpret=True))
     got = cc.close_and_label_lanes(torch.from_numpy(occ), iters)
@@ -73,7 +58,7 @@ def test_close_and_label_lanes_plain_matches_pallas(rng, iters):
 
 
 def test_serpentine_is_unconverged_at_256_rounds():
-    occ = torch.from_numpy(_serpentine(G))[None]
+    occ = torch.from_numpy(cc_grids.serpentine(G))[None]
     at_256 = cc.close_and_label_lanes(occ, 256)
     converged = cc.close_and_label_lanes(occ, 1200)
     assert not torch.equal(at_256, converged)

@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+import cc_grids
 from plade_tpu_torch.kernels import cc, nn
 
 
@@ -100,35 +101,18 @@ def test_cuda_reference_split_merges_ties_exactly():
     assert torch.equal(o, nn.oriented_min_dist_sq_plain(q, qn, r, rn, 0.5))
 
 
-def _serpentine(G):
-    """One winding component: full rows every 4 rows, joined at alternating
-    ends; its path is about G * G / 4 cells long."""
-    occ = np.zeros((G, G), np.int32)
-    for k, r in enumerate(range(0, G, 4)):
-        occ[r] = 1
-        if r + 4 < G:
-            occ[r + 1:r + 4, G - 1 if k % 2 == 0 else 0] = 1
-    return occ
-
-
-def _grids(L, G, seed=0):
-    """Serpentine, empty and full grids, then random counts at densities
-    spread over 0.05-0.6."""
-    rng = np.random.default_rng(seed)
-    fixed = [_serpentine(G), np.zeros((G, G), np.int32),
-             np.ones((G, G), np.int32)]
-    rand = [((rng.random((G, G)) < d) * rng.integers(1, 4, (G, G)))
-            .astype(np.int32) for d in np.linspace(0.05, 0.6, max(L - 3, 0))]
-    return np.stack((fixed + rand)[:L])
-
-
 @pytest.mark.cuda
+@pytest.mark.parametrize("G", [32, 64, 128, 48])  # 128, 48: generic instance
 @pytest.mark.parametrize("L", [1, 6, 12])
-@pytest.mark.parametrize("iters", [256, 8])
-def test_cuda_close_and_label_matches_plain(L, iters):
+@pytest.mark.parametrize("iters", [0, 1, 8, 256])
+def test_cuda_close_and_label_matches_plain(G, L, iters):
+    """Lanes: the serpentine, empty and full grids, the edge grids of
+    ``cc_grids.edge_grids`` (a line across a word and warp edge, diagonal
+    chains, diagonal pairs, a checkerboard, a plus on all four edges) and
+    random grids; L = 12 holds all of them."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (run on the card)")
-    occ = torch.from_numpy(_grids(L, 64, seed=L)).cuda()
+    occ = torch.from_numpy(cc_grids.grids(L, G, seed=L)).cuda()
     before = cc.LAUNCHES["close_and_label_lanes"]
     lab = cc.close_and_label_lanes(occ, iters)
     torch.cuda.synchronize()
@@ -136,15 +120,18 @@ def test_cuda_close_and_label_matches_plain(L, iters):
     assert torch.equal(lab, cc.close_and_label_lanes_plain(occ, iters))
     one = cc.close_and_label(occ[0], iters)
     assert torch.equal(one, lab[0])
-    if iters == 256:
-        # the serpentine lane is unconverged at 256 rounds
-        assert not torch.equal(cc.close_and_label_lanes(occ[:1], 4096),
-                               lab[:1])
+    if iters == 256 and L == 1 and G >= 48:
+        # the serpentine is unconverged at 256 rounds, and its labels after
+        # G * G rounds agree too
+        done = cc.close_and_label_lanes(occ, G * G)
+        assert not torch.equal(done, lab)
+        assert torch.equal(done, cc.close_and_label_lanes_plain(occ, G * G))
 
 
 @pytest.mark.cuda
 def test_cuda_close_and_label_large_grid():
-    """G = 128 takes the kernel's opted-in dynamic shared memory."""
+    """G = 128 at 300 rounds, aligned and misaligned, and odd sides (all
+    the generic instance); G = 129 is refused."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (run on the card)")
     rng = np.random.default_rng(3)
@@ -153,6 +140,16 @@ def test_cuda_close_and_label_large_grid():
     lab = cc.close_and_label_lanes(occ, 300)
     torch.cuda.synchronize()
     assert torch.equal(lab, cc.close_and_label_lanes_plain(occ, 300))
+    shifted = torch.empty(3 * 128 * 128 + 1, dtype=torch.int32,
+                          device="cuda")[1:].view(3, 128, 128)
+    shifted.copy_(occ)
+    assert shifted.data_ptr() % 8 == 4
+    assert torch.equal(cc.close_and_label_lanes(shifted, 300), lab)
+    for G in (1, 7, 127):                  # odd sides, generic instance
+        occ = torch.from_numpy((rng.random((2, G, G)) < 0.4)
+                               .astype(np.int32)).cuda()
+        assert torch.equal(cc.close_and_label_lanes(occ, 300),
+                           cc.close_and_label_lanes_plain(occ, 300))
     with pytest.raises(ValueError):
         cc.close_and_label_lanes(torch.zeros((1, 129, 129), dtype=torch.int32,
                                              device="cuda"))

@@ -7,7 +7,8 @@ Phases, in order; any failed check exits non-zero:
 (a) build the CUDA kernels from ``plade_tpu_torch/csrc``;
 (b) hold each kernel against its plain PyTorch version on the card, bit
     for bit: K2 (d2 and argmin) and K1 at the main path's shapes (K2
-    131072 x 16384, K1 131072 x 16384 and 262144 x 16384) and at edge
+    131072 x 16384 and, for the final ICP, 16384 x 16384, K1 131072 x 16384
+    and 262144 x 16384) and at edge
     shapes (ragged Q and T, Q = 1, T = 1, and small Q against 200000
     references, the finest reference split), with BIG-padded rows, a query
     whose normal disagrees with every reference normal (+inf row) and a
@@ -49,11 +50,31 @@ Phases, in order; any failed check exits non-zero:
     ``--parent`` the launches' sum in turns;
 (g) write the scene as PLY files and require ``register_files`` to give
     the transform of ``register_clouds``;
-(h) profile one ``register_clouds`` (its stage table has ``plade.extract``).
+(h) profile one ``register_clouds`` (its stage table has ``plade.extract``);
+(i) the device step ``register_pair_device`` (both clouds extracted in
+    lockstep, K3 at L = 12) on the scene of (c) at the default
+    ``PladeConfig``: one warm-up, then three timed runs; the first timed
+    run's extraction must equal (f)'s (plane counts, rounds, coefficients
+    within 1e-4) and its transform (f)'s within 1e-4; pose error, counters,
+    K3 launches (one per lockstep round, each at L = 12), host syncs and
+    peak memory beside ``register_clouds``'; one profiled step (stage table
+    and kernels per pair); K3 on the grids of that run's launches, as in
+    (f);
+(j) the step with ``enable_icp``: K2 launched 21 times at 16384 x 16384
+    (the final ICP) after the rescore's 4, pose error and counters;
+(k) the step with a line-confidence cull that drops part of the source's
+    lines, the step with the degraded descriptor families (the cluster
+    prefix widened to hold every hypothesis), and
+    ``register_clouds`` with a pinned support: each within the pose limits,
+    counters 0;
+(l) ``dist.mesh.register_array_pairs`` on 4 distinct synthetic scan pairs
+    (``make_scan_sequence`` at the settings of ``bench.py``'s batch pairs):
+    every pair succeeds.
 
 The last lines are the kernels' JSON line (one row per kernel and main-path
-shape), the card's name and power limit from nvidia-smi, and
-``{"ok": true, "device": {...}}``.
+shape; each row's ``launches`` counts its path's run and
+``launches_by_path`` every path's), the card's name and power limit from
+nvidia-smi, and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -78,10 +99,13 @@ import torch
 PEAK_OPS = 67e12
 PEAK_BYTES = 3.35e12
 #: the main path's K1/K2 shapes (Q, T) at the default PladeConfig: K2 in
-#: the rescore ICP (16 modes x 8192 subsampled source points), K1 in overlap
-#: phase 2 (8 x 16384) and in the rescore (16 x 16384), against the 16384
-#: downsampled target points
-K2_SHAPES = ((131072, 16384),)
+#: the rescore ICP (16 modes x 8192 subsampled source points) and, with
+#: ``enable_icp``, in the final ICP (the 16384 downsampled source points),
+#: K1 in overlap phase 2 (8 x 16384) and in the rescore (16 x 16384),
+#: against the 16384 downsampled target points
+K2_SHAPES = ((131072, 16384), (16384, 16384))
+#: the final ICP's K2 launches: ``PladeConfig.icp_iters`` + 1
+ICP_SHAPE = (16384, 16384)
 K1_SHAPES = ((131072, 16384), (262144, 16384))
 #: edge shapes, held bit for bit too: ragged Q and T, one query, one
 #: reference, and small Q against many references (the finest reference
@@ -587,8 +611,11 @@ def profile_stages(run, tag="[d]"):
           f"{other[1]:7d}", flush=True)
     if busy_us <= 0:
         fail("profiler saw no device time")
-    return {name: (host_us / 1e3, dev_us / 1e3, n)
-            for name, (dev_us, n, host_us) in per_stage.items()}
+    table = {name: (host_us / 1e3, dev_us / 1e3, n)
+             for name, (dev_us, n, host_us) in per_stage.items()}
+    table["(total)"] = (wall_us / 1e3, busy_us / 1e3,
+                        sum(e.get("cat") == "kernel" for e in device))
+    return table
 
 
 def serpentine(G: int) -> torch.Tensor:
@@ -818,7 +845,7 @@ def check_cc(cc, per_clock: float, old_k3=None):
     return rows
 
 
-def k3_main_path(cc, grids, per_clock: float, old_k3=None):
+def k3_main_path(cc, grids, per_clock: float, old_k3=None, tag="[f]"):
     """K3 on the grids of the main path's launches (``grids``: (occ,
     iters) of each launch of a timed ``register_clouds``): bit for bit
     against the plain version (and the parent's K3), the time of each
@@ -833,9 +860,10 @@ def k3_main_path(cc, grids, per_clock: float, old_k3=None):
         plain = cc.close_and_label_lanes_plain(occ, iters)
         err = max(err, (lab - plain).abs().max().item())
         if not torch.equal(lab, plain):
-            fail("[f] K3 differs from the plain version on a main-path grid")
+            fail(f"{tag} K3 differs from the plain version on a main-path "
+                 "grid")
         if old_k3 is not None and not torch.equal(old_k3(occ, iters), lab):
-            fail("[f] K3: parent and change differ on a main-path grid")
+            fail(f"{tag} K3: parent and change differ on a main-path grid")
         lane_rounds.append(k3_rounds(cc, occ, iters))
     launch_ms = [queued_ms(lambda: cc.close_and_label_lanes(occ, iters))
                  for occ, iters in grids]
@@ -848,7 +876,7 @@ def k3_main_path(cc, grids, per_clock: float, old_k3=None):
     chain_ms = k3_chain_bound(
         [(o, r) for (o, _), r in zip(grids, lane_rounds)], clock,
         per_clock)
-    print(f"[f] K3 on the main path: {len(grids)} launches, lanes x grid "
+    print(f"{tag} K3 on the main path: {len(grids)} launches, lanes x grid "
           f"{[tuple(o.shape) for o, _ in grids]}, rounds per lane "
           f"{[r.tolist() for r in lane_rounds]}; bit-identical to the plain "
           f"version; kernel ms per launch "
@@ -870,7 +898,8 @@ def k3_main_path(cc, grids, per_clock: float, old_k3=None):
         new_k3 = cc.close_and_label_lanes
         turns = k3_turns([old_k3, new_k3, new_k3, old_k3], grids)
         row["parent_ms"] = [turns[0], turns[3]]
-        print(f"[f] K3 main-path launches summed, parent vs change in turns: "
+        print(f"{tag} K3 main-path launches summed, parent vs change in "
+              "turns: "
               f"parent {turns[0]:.4f}, change {turns[1]:.4f}, change "
               f"{turns[2]:.4f}, parent {turns[3]:.4f} ms (same bits)",
               flush=True)
@@ -997,8 +1026,9 @@ def check_register_clouds(tp, tn, sp, sn, R, t, gen, cfg, device):
     scene's planes; pose error, counters, kernel launches (returned) and
     host syncs of the first timed run, whose extractions are the ones
     checked.  (g) ``register_files`` on the same clouds written as PLY must
-    give the same transform.  Returns (launches, the (occ, iters) of each
-    K3 launch of that run)."""
+    give the same transform.  Returns a dict: that run's ``launches``, the
+    (occ, iters) of each K3 launch (``k3_grids``), its ``extractions``
+    ((planes, stats) per cloud), its transform ``T``, and the ``walls``."""
     from plade_tpu_torch import pipeline
     from plade_tpu_torch.core import types as ptypes
     from plade_tpu_torch.extract import ransac
@@ -1015,9 +1045,7 @@ def check_register_clouds(tp, tn, sp, sn, R, t, gen, cfg, device):
     walls = []
     for run in range(3):
         if run == 0:
-            for k in nn.LAUNCHES:
-                nn.LAUNCHES[k] = 0
-            ptypes.HOST_SYNCS["count"] = 0
+            reset_counts()
         # the first timed run also keeps each prepared cloud's live
         # downsampled count and each K3 input (device tensors: no sync)
         with recorded_extractions(ransac) as seen, \
@@ -1101,8 +1129,7 @@ def check_register_clouds(tp, tn, sp, sn, R, t, gen, cfg, device):
 
     if torch.device(device).type == "cuda":
         # the entry point's default device is the card
-        for k in nn.LAUNCHES:
-            nn.LAUNCHES[k] = 0
+        reset_counts()
         Td, info_d = register_clouds(tp, tn, sp, sn, cfg, seed=0)
         default_launches = dict(nn.LAUNCHES)
         check_result("[f] default device", Td, info_d)
@@ -1130,7 +1157,297 @@ def check_register_clouds(tp, tn, sp, sn, R, t, gen, cfg, device):
           f"{drot:.6f} deg, translation diff {dtrans:.3e}", flush=True)
     if drot >= FILES_TOL_DEG or dtrans >= FILES_TOL_T:
         fail("[g] register_files disagrees with register_clouds")
-    return launches, k3_grids
+    return dict(launches=launches, k3_grids=k3_grids,
+                extractions=extractions, T=T, walls=walls)
+
+
+def reset_counts():
+    """Set every kernel's launch count and the host-sync count to 0."""
+    from plade_tpu_torch.core import types as ptypes
+    from plade_tpu_torch.kernels import nn
+    for k in nn.LAUNCHES:
+        nn.LAUNCHES[k] = 0
+    ptypes.HOST_SYNCS["count"] = 0
+
+
+def check_counters(tag, res, problems):
+    """The three truncation counters of a ``RegistrationResult``, printed;
+    a non-zero one is added to ``problems``."""
+    counts = {k: int(getattr(res, k)) for k in
+              ("match_saturated", "pen_overflow", "cluster_truncated")}
+    print(f"{tag} counters: {counts}", flush=True)
+    problems += [f"{tag} {k} = {v}" for k, v in counts.items() if v]
+
+
+def check_pose(tag, T, R, t, problems):
+    """Pose error of T against (R, t), printed; beyond the limits it is
+    added to ``problems``.  Returns (rotation deg, translation)."""
+    rot, trans = pose_errors(T, R, t)
+    print(f"{tag} rotation error {rot:.6f} deg, translation error "
+          f"{trans:.6f}", flush=True)
+    if not (rot < ROT_TOL_DEG and trans < TRANS_TOL):
+        problems.append(f"{tag} pose error {rot} deg / {trans} beyond "
+                        f"{ROT_TOL_DEG} / {TRANS_TOL}")
+    return rot, trans
+
+
+def same_planes(tag, a, b):
+    """Plane sets ``a`` and ``b`` of one cloud: equal counts, coefficients
+    within 1e-4 and sizes within max(2, 0.1%) (the tolerances of (e));
+    fails otherwise.  Returns the largest coefficient difference."""
+    n = int(a.count)
+    if int(b.count) != n:
+        fail(f"{tag} {n} planes against {int(b.count)}")
+    ca, cb = a.coeffs[:n].cpu().numpy(), b.coeffs[:n].cpu().numpy()
+    sa, sb = a.sizes[:n].cpu().numpy(), b.sizes[:n].cpu().numpy()
+    diff = float(np.abs(ca - cb).max()) if n else 0.0
+    if diff > 1e-4 or (np.abs(sa - sb) > np.maximum(2, 0.001 * sb)).any():
+        fail(f"{tag} planes differ: coefficients by {diff:.3e}, sizes "
+             f"{sa.tolist()} vs {sb.tolist()}")
+    return diff
+
+
+def check_device_step(scene, cfg, clouds_run, clouds_table):
+    """(i) the device step on the scene of (c) at ``cfg``: one warm-up and
+    three timed runs; the first timed run's extraction against (f)'s
+    (``clouds_run``), its transform within 1e-4 of (f)'s, pose error,
+    counters, K3 launches (one per lockstep round, each over 2 x 6 lanes),
+    K1/K2 launches, host syncs, wall and peak memory beside
+    ``register_clouds``', and one profiled step (its kernels beside
+    ``clouds_table``'s, (h)).  Returns a dict: the padded clouds, the
+    ``launches``, the K3 grids of the first timed run (``k3_grids``) and
+    that run's prepared clouds with their ``dsd`` (``prepared``)."""
+    from plade_tpu_torch import pipeline
+    from plade_tpu_torch.core import types as ptypes
+    from plade_tpu_torch.extract import ransac
+    from plade_tpu_torch.kernels import nn
+    tp, tn, sp, sn, R, t = scene
+    pad = pipeline._pad_size(max(tp.shape[0], sp.shape[0]),
+                             maximum=cfg.max_points)
+    tgt = ptypes.pad_cloud(tp, tn, pad, "cuda")
+    src = ptypes.pad_cloud(sp, sn, pad, "cuda")
+    step = pipeline.register_pair_device(cfg, pad)       # the card: default
+    step(tgt, src, 0)                                    # warm-up
+    torch.cuda.synchronize()
+    walls = []
+    for run in range(3):
+        if run == 0:
+            reset_counts()
+            torch.cuda.reset_peak_memory_stats()
+        with recorded_extractions(ransac) as seen, \
+                recorded_calls(ransac, "close_and_label_lanes",
+                               lambda a, out: (a[0].clone(), a[1])) as grids, \
+                recorded_calls(pipeline, "prepare_cloud",
+                               lambda a, out: (out, a[2])) as preps:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = step(tgt, src, 0)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        if run == 0:
+            launches = dict(nn.LAUNCHES)
+            syncs = ptypes.HOST_SYNCS["count"]
+            peak = torch.cuda.max_memory_allocated()
+            first, k3_grids, prepared = res, grids, preps
+    res = first
+    if len(seen) != 1:
+        fail(f"[i] {len(seen)} extraction calls, expected one lockstep call")
+    (planes, stats), = seen
+    rounds = stats.rounds.tolist()
+    lanes = [int(o.shape[0]) for o, _ in k3_grids]
+    print(f"[i] register_pair_device: lockstep extraction rounds (target, "
+          f"source) {rounds}, planes extracted "
+          f"{planes.count.tolist()}; K3 launches {len(k3_grids)} over lanes "
+          f"{sorted(set(lanes))}", flush=True)
+    if len(k3_grids) != max(rounds) or set(lanes) != \
+            {2 * cfg.ransac_exact_lanes}:
+        fail(f"[i] K3 launches {lanes}: not one per lockstep round "
+             f"({max(rounds)}) at L = {2 * cfg.ransac_exact_lanes}")
+    if launches["close_and_label_lanes"] != len(k3_grids):
+        fail(f"[i] K3 counted {launches['close_and_label_lanes']} launches, "
+             f"recorded {len(k3_grids)}")
+    diffs = []
+    for c, (side, (p1, s1)) in enumerate(zip(("target", "source"),
+                                             clouds_run["extractions"])):
+        pc = ptypes.PlaneSet(*(x[c] for x in planes))
+        diffs.append(same_planes(f"[i] {side} vs (f):", pc, p1))
+        if int(stats.rounds[c]) != int(s1.rounds):
+            fail(f"[i] {side}: {int(stats.rounds[c])} rounds, (f) "
+                 f"{int(s1.rounds)}")
+    T = res.transform.cpu().numpy()
+    dT = float(np.abs(T - clouds_run["T"]).max())
+    print(f"[i] extraction equals register_clouds' (f): coefficient "
+          f"differences {diffs}, rounds equal; transform differs from (f)'s "
+          f"by {dT:.3e} at most", flush=True)
+    if dT >= 1e-4 or not bool(res.success):
+        fail(f"[i] step: success {bool(res.success)}, transform differs from "
+             f"register_clouds' by {dT}")
+    problems = []
+    check_pose("[i]", T, R, t, problems)
+    check_counters("[i]", res, problems)
+    if problems:
+        fail("; ".join(problems))
+    if launches["oriented_min_dist_sq"] < 2 or launches["nearest_neighbor"] \
+            < 4:
+        fail(f"[i] kernel launches {launches} below K1 >= 2, K2 >= 4")
+    torch.cuda.reset_peak_memory_stats()
+    from plade_tpu_torch.pipeline import register_clouds
+    register_clouds(tp, tn, sp, sn, cfg, seed=0)
+    torch.cuda.synchronize()
+    clouds_peak = torch.cuda.max_memory_allocated()
+    print(f"[i] launches per pair {launches} (register_clouds "
+          f"{clouds_run['launches']}); host syncs {syncs}; wall per pair "
+          f"(median of 3) {statistics.median(walls) * 1e3:.1f} ms, runs "
+          f"{[round(w * 1e3, 1) for w in walls]} ms; register_clouds in this "
+          f"call {statistics.median(clouds_run['walls']) * 1e3:.1f} ms, runs "
+          f"{[round(w * 1e3, 1) for w in clouds_run['walls']]} ms; peak "
+          f"memory {peak / 2**20:.1f} MiB (register_clouds "
+          f"{clouds_peak / 2**20:.1f} MiB)", flush=True)
+    table = profile_stages(lambda: step(tgt, src, 0), tag="[i]")
+    print(f"[i] kernels per pair: step {table['(total)'][2]}, "
+          f"register_clouds {clouds_table['(total)'][2]} ((h)); extraction "
+          f"{table['plade.extract'][2]} vs "
+          f"{clouds_table['plade.extract'][2]}", flush=True)
+    return dict(clouds=(tgt, src), pad=pad, launches=launches,
+                k3_grids=k3_grids, prepared=prepared)
+
+
+def check_options(scene, cfg, step_run):
+    """(j) the step with ``enable_icp``, (k) with a line-confidence cull and
+    with the degraded families, and ``register_clouds`` with a pinned
+    support, on the scene of (c).  Each is run once with the counts at 0;
+    pose error and counters are held to (c)'s limits.  Returns (launches by
+    path, the final ICP's K2 launches at ``ICP_SHAPE``)."""
+    from plade_tpu_torch import pipeline
+    from plade_tpu_torch.kernels import nn
+    from plade_tpu_torch.refine import icp as icp_mod
+    tp, tn, sp, sn, R, t = scene
+    tgt, src = step_run["clouds"]
+    pad = step_run["pad"]
+    problems, paths = [], {}
+
+    # (j) the final ICP: the rescore's 4 K2 launches, then icp_iters + 1
+    cfg_icp = dataclasses.replace(cfg, enable_icp=True)
+    reset_counts()
+    with recorded_calls(icp_mod, "nearest_neighbor",
+                        lambda a, out: (a[0].shape[0],
+                                        a[1].shape[0])) as shapes:
+        res = pipeline.register_pair_device(cfg_icp, pad)(tgt, src, 0)
+        torch.cuda.synchronize()
+    paths["enable_icp"] = dict(nn.LAUNCHES)
+    at_shape = sum(s == ICP_SHAPE for s in shapes)
+    print(f"[j] enable_icp: launches {paths['enable_icp']}, K2 at "
+          f"{ICP_SHAPE[0]}x{ICP_SHAPE[1]}: {at_shape} (icp_iters "
+          f"{cfg.icp_iters} + 1), shapes {sorted(set(shapes))}", flush=True)
+    if at_shape != cfg.icp_iters + 1 or \
+            paths["enable_icp"]["nearest_neighbor"] != len(shapes):
+        problems.append(f"[j] K2 launches {shapes}")
+    check_pose("[j]", res.transform.cpu().numpy(), R, t, problems)
+    check_counters("[j]", res, problems)
+    if not bool(res.success):
+        problems.append("[j] registration failed")
+
+    # (k) line confidence: a threshold at the 30% quantile of the source's
+    # line confidences in (i), so that the cull drops part of its lines
+    prep, dsd = step_run["prepared"][1]
+    n_lines = int(prep.lines.count)
+    conf = pipeline._line_confidence(prep.lines, prep.geom, dsd, cfg)
+    thresh = float(torch.quantile(conf[:n_lines], 0.3))
+    cfg_lc = dataclasses.replace(cfg, min_line_confidence=thresh)
+    reset_counts()
+    with recorded_calls(pipeline, "prepare_cloud",
+                        lambda a, out: out.lines.count) as kept:
+        res = pipeline.register_pair_device(cfg_lc, pad)(tgt, src, 0)
+        torch.cuda.synchronize()
+    paths["min_line_confidence"] = dict(nn.LAUNCHES)
+    kept = [int(k) for k in kept]
+    print(f"[k] min_line_confidence {thresh:.4g}: lines kept (target, "
+          f"source) {kept}, source lines without the cull {n_lines}; "
+          f"launches {paths['min_line_confidence']}", flush=True)
+    if not kept[1] < n_lines:
+        problems.append(f"[k] the cull kept all {n_lines} source lines")
+    check_pose("[k] line confidence:", res.transform.cpu().numpy(), R, t,
+               problems)
+    check_counters("[k] line confidence:", res, problems)
+
+    # the degraded families add up to 2 x max_degraded_matches hypotheses
+    # behind the 2-2 ones; on this scene the default 8192-row cluster
+    # prefix drops ~10.8k of them (cluster_truncated), so the prefix covers
+    # the whole stitched buffer
+    cfg_deg = dataclasses.replace(
+        cfg, enable_degraded_families=True,
+        max_cluster_hypotheses=cfg.max_matches + 2 * cfg.max_degraded_matches)
+    reset_counts()
+    res = pipeline.register_pair_device(cfg_deg, pad)(tgt, src, 0)
+    torch.cuda.synchronize()
+    paths["enable_degraded_families"] = dict(nn.LAUNCHES)
+    print(f"[k] enable_degraded_families: success {bool(res.success)}, "
+          f"matched planes {int(res.matched_planes)}, score "
+          f"{float(res.score):.6f}; launches "
+          f"{paths['enable_degraded_families']}", flush=True)
+    check_pose("[k] degraded families:", res.transform.cpu().numpy(), R, t,
+               problems)
+    check_counters("[k] degraded families:", res, problems)
+
+    reset_counts()
+    T, info = pipeline.register_clouds(tp, tn, sp, sn, cfg, seed=0,
+                                       ransac_min_support=2000)
+    paths["ransac_min_support"] = dict(nn.LAUNCHES)
+    print(f"[k] register_clouds(ransac_min_support=2000): planes "
+          f"{info.get('tgt_planes')} / {info.get('src_planes')}, success "
+          f"{info.get('success')}; launches {paths['ransac_min_support']}",
+          flush=True)
+    check_pose("[k] pinned support:", T, R, t, problems)
+    counts = {k: info.get(k) for k in ("match_saturated", "pen_overflow",
+                                       "cluster_truncated")}
+    print(f"[k] pinned support: counters {counts}", flush=True)
+    problems += [f"[k] pinned {k} = {v}" for k, v in counts.items() if v]
+    for path, counts in paths.items():
+        if min(counts.values()) < 1:
+            problems.append(f"{path}: a kernel was not launched: {counts}")
+    if problems:
+        fail("; ".join(problems))
+    return paths, at_shape
+
+
+def check_array_pairs(cfg):
+    """(l) ``register_array_pairs`` on 4 distinct synthetic scan pairs at
+    the settings of ``bench.py``'s batch pairs: every pair succeeds; pose
+    errors against the scans' ground truth are printed.  Returns the run's
+    launches."""
+    from plade_tpu_torch.dist.mesh import register_array_pairs
+    from plade_tpu_torch.io.synthetic import make_scan_sequence
+    from plade_tpu_torch.kernels import nn
+    pairs, truth = [], []
+    for b in range(1, 5):
+        scans, poses = make_scan_sequence(
+            np.random.default_rng(1000 + b), n_scans=2,
+            n_points=min(cfg.max_points, 100000), overlap_radius=3.4,
+            step=2.0, n_rooms=3, n_per_plane=9000, noise=0.02, size=4.0,
+            extra_planes=3, normal_noise_deg=3.0, max_angle=1.0,
+            max_trans=0.6)
+        pairs.append((*scans[0], *scans[1]))
+        truth.append(np.linalg.inv(poses[0]) @ poses[1])
+    reset_counts()
+    t0 = time.perf_counter()
+    outs = register_array_pairs(pairs, cfg, seed=0)
+    wall = time.perf_counter() - t0
+    launches = dict(nn.LAUNCHES)
+    for i, (o, gt) in enumerate(zip(outs, truth)):
+        rot, trans = pose_errors(o.transform, gt[:3, :3], gt[:3, 3])
+        print(f"[l] pair {i}: {pairs[i][0].shape[0]} / "
+              f"{pairs[i][2].shape[0]} points, success {o.success}, score "
+              f"{o.score:.6f}, matched planes {o.matched_planes}, rotation "
+              f"error {rot:.4f} deg, translation error {trans:.4f}, "
+              f"counters {o.match_saturated}/{o.pen_overflow}/"
+              f"{o.cluster_truncated}", flush=True)
+    print(f"[l] register_array_pairs: {len(outs)} pairs in {wall:.2f} s; "
+          f"launches {launches}", flush=True)
+    if len(outs) != 4 or not all(o.success for o in outs):
+        fail(f"[l] pairs failed: {[o.success for o in outs]}")
+    if min(launches.values()) < 1:
+        fail(f"[l] a kernel was not launched: {launches}")
+    return launches
 
 
 def main():
@@ -1190,9 +1507,7 @@ def main():
     walls = []
     for run in range(3):
         if run == 0:
-            for k in nn.LAUNCHES:
-                nn.LAUNCHES[k] = 0
-            ptypes.HOST_SYNCS["count"] = 0
+            reset_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         T, info = register_with_planes(tp, tn, sp, sn, tpl, spl, cfg,
@@ -1256,24 +1571,50 @@ def main():
         extract_card_vs_cpu(pts, nrm, small, side)
 
     # (f) register_clouds and (g) register_files on the scene of (c)
-    launches, k3_grids = check_register_clouds(tp, tn, sp, sn, R, t, gen,
-                                               cfg, "cuda")
-    rows.append(k3_main_path(cc, k3_grids, per_clock, old_k3))
+    clouds_run = check_register_clouds(tp, tn, sp, sn, R, t, gen, cfg,
+                                       "cuda")
+    row = k3_main_path(cc, clouds_run["k3_grids"], per_clock, old_k3)
+    row["path"] = "register_clouds"
+    rows.append(row)
+
+    # (h) one profiled register_clouds: where the time goes
+    clouds_table = profile_stages(lambda: register_clouds(
+        tp, tn, sp, sn, cfg, seed=0, device="cuda"), tag="[h]")
+    if "plade.extract" not in clouds_table:
+        fail("[h] no plade.extract range in the profile")
+
+    # (i) the device step: lockstep extraction, K3 at L = 12
+    scene = (tp, tn, sp, sn, R, t)
+    step_run = check_device_step(scene, cfg, clouds_run, clouds_table)
+    row = k3_main_path(cc, step_run["k3_grids"], per_clock, old_k3,
+                       tag="[i]")
+    row["path"] = "register_pair_device"
+    rows.append(row)
+
+    # (j), (k) the options; (l) the batch entry
+    paths, icp_k2 = check_options(scene, cfg, step_run)
+    paths["register_array_pairs"] = check_array_pairs(cfg)
+    paths.update({"register_pair_device": step_run["launches"],
+                  "register_clouds": clouds_run["launches"],
+                  "register_with_planes": planes_launches})
     for row in rows:
-        row["launches"] = launches.get(row["name"], 0)
-        row["launches_by_path"] = {
-            "register_clouds": row["launches"],
-            "register_with_planes": planes_launches.get(row["name"], 0)}
+        if row["name"] == "nearest_neighbor" and \
+                row["shape"] == f"{ICP_SHAPE[0]}x{ICP_SHAPE[1]}":
+            row["path"] = "enable_icp"
+        path = row.setdefault("path", "register_pair_device")
+        row["launches"] = paths[path].get(row["name"], 0)
+        if row["path"] == "enable_icp":
+            # its path's K2 launches at this shape (the rescore's are at
+            # 131072 x 16384)
+            row["launches"] = icp_k2
+        row["launches_by_path"] = {p: counts.get(row["name"], 0)
+                                   for p, counts in paths.items()}
         if row["name"] == "close_and_label":
             # the L = 1 entry is on no main path (the reference's tests call
             # it); the paths run the same kernel through close_and_label_lanes
             row["on_main_path"] = False
-
-    # (h) one profiled register_clouds: where the time goes
-    table = profile_stages(lambda: register_clouds(
-        tp, tn, sp, sn, cfg, seed=0, device="cuda"), tag="[h]")
-    if "plade.extract" not in table:
-        fail("[h] no plade.extract range in the profile")
+            row["path"] = None
+            row["launches"] = 0
 
     print(json.dumps({"kernels": rows}))
     print(gpu_info())

@@ -22,9 +22,10 @@ HOST_SYNCS = {"count": 0}
 
 
 def host_value(t: torch.Tensor):
-    """The Python value of a 0-d tensor; counts one host sync."""
+    """The Python value of a tensor (a number for a 0-d tensor, else a
+    list); counts one host sync."""
     HOST_SYNCS["count"] += 1
-    return t.item()
+    return t.tolist()
 
 
 def _mask(n: int, count: torch.Tensor) -> torch.Tensor:

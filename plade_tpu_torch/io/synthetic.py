@@ -2,9 +2,10 @@
 
 A numpy-only copy of the scene generators of ``plade_tpu/io/synthetic.py``
 (that package imports JAX when it is imported): ``perturb_normals``,
-``make_plane_points``, ``make_room``, ``random_rigid`` and
-``transform_cloud``, unchanged, so the same seed gives bit-identical
-scenes (pinned by ``tests/test_torch_core.py``).
+``make_plane_points``, ``make_room``, ``make_world``,
+``make_scan_sequence``, ``random_rigid`` and ``transform_cloud``,
+unchanged, so the same seed gives bit-identical scenes (pinned by
+``tests/test_torch_core.py``).
 
 The reference has no test suite (SURVEY section 4); these generators provide
 the analytic ground truth its sample data can't: scenes made of known planes
@@ -121,6 +122,62 @@ def make_room(rng, n_per_plane=3000, noise=0.0, size=4.0, extra_planes=4,
     normals = np.concatenate(nrm_list, axis=0)
     perm = rng.permutation(points.shape[0])
     return points[perm], normals[perm], planes
+
+
+def make_world(rng, n_rooms=3, n_per_plane=3000, noise=0.0, size=4.0,
+               extra_planes=3, normal_noise_deg=0.0):
+    """A row of connected 'rooms' (each a make_room box with interior
+    planes) along +x — a synthetic stand-in for the RESSO building floors:
+    large planar structure, repeated geometry, distinct local details.
+
+    Returns (points, normals) in the world frame.
+    """
+    pts_list, nrm_list = [], []
+    for k in range(n_rooms):
+        p, n, _ = make_room(rng, n_per_plane=n_per_plane, noise=noise,
+                            size=size, extra_planes=extra_planes,
+                            normal_noise_deg=normal_noise_deg)
+        offset = np.array([k * size * 0.85, 0.0, 0.0], np.float32)
+        pts_list.append(p + offset)
+        nrm_list.append(n)
+    return (np.concatenate(pts_list).astype(np.float32),
+            np.concatenate(nrm_list).astype(np.float32))
+
+
+def make_scan_sequence(rng, n_scans=6, n_points=60000, overlap_radius=3.2,
+                       step=2.0, world=None, max_angle=0.6, max_trans=0.5,
+                       **world_kwargs):
+    """Cut a world cloud into a sequence of partially overlapping 'scans'
+    (the RESSO evaluation shape: consecutive pairs share 30-50% of their
+    points).  Scan i sees the world within ``overlap_radius`` of a
+    viewpoint marching along +x in ``step`` increments, expressed in its
+    own scanner frame via a random rigid pose.
+
+    Returns (scans, gt_poses): scans = list of (points, normals) in scanner
+    frames, gt_poses = (n_scans, 4, 4) scan->world transforms (the RESSO
+    ground-truth convention, io/resso.py).
+    """
+    if world is None:
+        world = make_world(rng, **world_kwargs)
+    wpts, wnrm = world
+    scans, poses = [], []
+    for i in range(n_scans):
+        center = np.array([i * step, 0.0, 0.0], np.float32)
+        d = np.linalg.norm(wpts - center[None], axis=1)
+        sel = np.where(d <= overlap_radius)[0]
+        if len(sel) > n_points:
+            sel = rng.choice(sel, size=n_points, replace=False)
+        p, n = wpts[sel], wnrm[sel]
+        R, t = random_rigid(rng, max_angle=max_angle, max_trans=max_trans)
+        # scan = world points expressed in the scanner frame:
+        # p_scan = R^T (p_world - t)  =>  scan->world pose is (R, t)
+        sp, sn = transform_cloud(p, n, R.T, -R.T @ t)
+        T = np.eye(4, dtype=np.float64)
+        T[:3, :3] = R
+        T[:3, 3] = t
+        scans.append((sp, sn))
+        poses.append(T)
+    return scans, np.stack(poses)
 
 
 def random_rigid(rng, max_angle=np.pi, max_trans=1.0):

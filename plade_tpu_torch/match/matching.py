@@ -39,9 +39,10 @@ class Matches(NamedTuple):
 def match_descriptors(query: PairDescriptors, target: PairDescriptors,
                       radius: float, max_matches: int,
                       block: int = 1024, per_query: int = 64) -> Matches:
-    """All (query, target) descriptor pairs within ``radius`` (8-D
-    Euclidean, |q|^2 - 2 q.t + |t|^2 form), at most ``per_query`` per query
-    row (the nearest), compacted in (query row, distance rank) order into a
+    """All (query, target) descriptor pairs within ``radius`` (Euclidean
+    over the descriptor width: 8-D, or 6-D for the degraded families;
+    |q|^2 - 2 q.t + |t|^2 form), at most ``per_query`` per query row (the
+    nearest), compacted in (query row, distance rank) order into a
     fixed-size buffer."""
     Q = query.desc.shape[0]
     T = target.desc.shape[0]
@@ -83,6 +84,33 @@ def match_descriptors(query: PairDescriptors, target: PairDescriptors,
     return Matches(q_idx=buf_q[:max_matches], t_idx=buf_t[:max_matches],
                    valid=m, count=total,
                    saturated=torch.sum((nh > kept_hits).to(torch.int32)))
+
+
+def stitch_hypotheses(segments):
+    """Front-compact hypothesis segments into one (R, t, valid) buffer.
+
+    ``segments``: list of ``(R (Mi, 3, 3), t (Mi, 3), count ())`` whose
+    valid rows sit in a front prefix (the ``match_descriptors``
+    convention).  Each segment is copied at the running valid count, so all
+    valid rows land in one prefix that clustering's prefix covers.  The
+    write offsets stay on the device.  Returns (R, t, valid, total)."""
+    H = sum(int(s[0].shape[0]) for s in segments)
+    R0, t0, c0 = segments[0]
+    dev = R0.device
+    R = torch.zeros((H, 3, 3), dtype=R0.dtype, device=dev)
+    t = torch.zeros((H, 3), dtype=t0.dtype, device=dev)
+    R[:R0.shape[0]] = R0
+    t[:t0.shape[0]] = t0
+    total = torch.clamp(c0, max=R0.shape[0]).to(torch.int64)
+    for Ri, ti, ci in segments[1:]:
+        # start = running count <= the previous segments' sizes, so
+        # start + Mi <= H
+        pos = total + torch.arange(Ri.shape[0], device=dev)
+        R.index_copy_(0, pos, Ri)
+        t.index_copy_(0, pos, ti)
+        total = total + torch.clamp(ci, max=Ri.shape[0])
+    valid = torch.arange(H, device=dev) < total
+    return R, t, valid, total.to(torch.int32)
 
 
 def hypothesis_poses(query: PairDescriptors, target: PairDescriptors,

@@ -44,7 +44,8 @@ def test_config_from_round_trip():
 
 @pytest.mark.parametrize("name", ["make_room", "make_room_noisy_faces",
                                   "random_rigid", "transform_cloud",
-                                  "make_plane_points"])
+                                  "make_plane_points", "make_world",
+                                  "make_scan_sequence"])
 def test_synthetic_copy_bit_identical(name):
     """Same seed, same arrays, bit for bit (tolerance 0: the copy is the
     same numpy code)."""
@@ -60,6 +61,16 @@ def test_synthetic_copy_bit_identical(name):
             return [p, n] + [np.asarray(a) for pl in planes for a in pl]
         if name == "random_rigid":
             return list(mod.random_rigid(rng, max_angle=1.0, max_trans=0.5))
+        if name == "make_world":
+            return list(mod.make_world(rng, n_rooms=2, n_per_plane=150,
+                                       noise=0.01, extra_planes=2,
+                                       normal_noise_deg=3.0))
+        if name == "make_scan_sequence":
+            scans, poses = mod.make_scan_sequence(
+                rng, n_scans=3, n_points=800, overlap_radius=3.4, step=2.0,
+                n_rooms=3, n_per_plane=300, noise=0.02, extra_planes=3,
+                normal_noise_deg=3.0, max_angle=1.0, max_trans=0.6)
+            return [a for scan in scans for a in scan] + [poses]
         if name == "transform_cloud":
             R, t = mod.random_rigid(rng)
             pts = rng.normal(size=(50, 3)).astype(np.float32)
@@ -192,7 +203,8 @@ def test_port_imports_without_jax():
     code = ("import sys; import plade_tpu_torch, plade_tpu_torch.pipeline, "
             "plade_tpu_torch.core.convert; "
             "import plade_tpu_torch.io.synthetic, plade_tpu_torch.io.ply, "
-            "plade_tpu_torch.extract.ransac, plade_tpu_torch.kernels.cc; "
+            "plade_tpu_torch.extract.ransac, plade_tpu_torch.kernels.cc, "
+            "plade_tpu_torch.dist.mesh; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "assert not any(m.startswith('plade_tpu.') or m == 'plade_tpu' "
             "for m in sys.modules), 'plade_tpu imported'; "
@@ -203,23 +215,3 @@ def test_port_imports_without_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-
-
-@pytest.mark.parametrize("flag", [
-    dict(enable_degraded_families=True),
-    dict(min_line_confidence=1.0),
-    dict(enable_icp=True),
-])
-def test_unported_options_raise(flag):
-    from plade_tpu_torch.pipeline import register_with_planes
-    cfg = dataclasses.replace(PladeConfig(), **flag)
-    pts = np.zeros((4, 3), np.float32)
-    planes = types.PlaneSet(np.zeros((2, 4), np.float32),
-                            np.zeros(2, np.int32), np.int32(0),
-                            np.full(4, -1, np.int32))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        register_with_planes(pts, pts, pts, pts, planes, planes, cfg,
-                             device="cpu")
-    from plade_tpu_torch.pipeline import register_clouds
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        register_clouds(pts, pts, pts, pts, cfg, device="cpu")

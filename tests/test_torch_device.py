@@ -81,11 +81,3 @@ def test_default_is_cuda_whatever_the_inputs(monkeypatch):
     assert pipeline._run_device("cuda:1") == torch.device("cuda:1")
     assert pipeline._run_device("cpu") == torch.device("cpu")
     assert pipeline._run_device(torch.device("cpu")) == torch.device("cpu")
-
-
-def test_unported_option_raises_before_the_device(no_cuda):
-    """``check_supported`` still raises ``NotImplementedError`` first."""
-    pts, nrm = _blob(16)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pipeline.register_clouds(pts, nrm, pts, nrm, CFG,
-                                 ransac_min_support=400)

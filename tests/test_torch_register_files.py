@@ -1,9 +1,10 @@
 """The port's ``register_clouds`` paths beside the plain registration, on
 the CPU at ``SMALL_CFG`` sizes: the target/source swap, the "too few
-planes" failure, the cap at ``max_points``, the unported pinned overload,
-and a PLY round trip through ``register_files``, against ground truth with
-the bounds of ``tests/test_pipeline.py``'s overload pairs, on a smaller
-room.  CPU tensors run the plain kernel versions: no launch is counted."""
+planes" failure, the cap at ``max_points``, and a PLY round trip through
+``register_files``, against ground truth with the bounds of
+``tests/test_pipeline.py``'s overload pairs, on a smaller room (the pinned
+overload is in ``tests/test_torch_pinned.py``).  CPU tensors run the plain
+kernel versions: no launch is counted."""
 import dataclasses
 
 import numpy as np
@@ -75,13 +76,6 @@ def test_register_clouds_capped_cloud_is_reported():
     assert info["cloud_capped"] == {"target": True, "source": True,
                                     "max_points": 4096}
     assert info["failure"] == "too few planes"
-
-
-def test_register_clouds_pinned_support_not_ported():
-    pts = np.zeros((8, 3), np.float32)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, step 10"):
-        register_clouds(pts, pts, pts, pts, CFG, ransac_min_support=400,
-                        device="cpu")
 
 
 def test_register_files_ply_round_trip(tmp_path):

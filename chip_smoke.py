@@ -69,12 +69,26 @@ Phases, in order; any failed check exits non-zero:
     counters 0;
 (l) ``dist.mesh.register_array_pairs`` on 4 distinct synthetic scan pairs
     (``make_scan_sequence`` at the settings of ``bench.py``'s batch pairs):
-    every pair succeeds.
+    every pair succeeds;
+(m) the command line at the default ``PladeConfig``: ``python -m
+    plade_tpu_torch.cli T.ply S.ply OUT --profile DIR`` as a subprocess
+    without ``--device`` on the room of (c) (exit 0, the result within the
+    pose limits and within 1e-4 of (g)'s, K1, K2 and K3 kernel events in
+    the trace), once more without ``--profile`` (the start-up cost), then
+    ``cli.main`` in this process: single, ``--icp``, batch over the scan
+    pairs of (l) sequentially and with ``--device-batch``, and ``view`` to
+    PLY and HTML, each within the pose limits with its launches counted;
+(n) scene mode: 5 scans (``make_scan_sequence(rng(2000))`` at (l)'s
+    settings with step 1.4), ``scene DIR OUT --loop-stride 2`` with
+    ``--device-batch`` and sequentially: every scan's pose within the limits
+    of the ground truth, and the pose graph solved on the card and on the
+    CPU within 1e-4.
 
 The last lines are the kernels' JSON line (one row per kernel and main-path
 shape; each row's ``launches`` counts its path's run and
-``launches_by_path`` every path's), the card's name and power limit from
-nvidia-smi, and ``{"ok": true, "device": {...}}``.
+``launches_by_path`` every path's; the rows of chip_smoke's own K3 grids
+lie on no path: ``"path": null``, ``"launches": 0``), the card's name and
+power limit from nvidia-smi, and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -804,7 +818,8 @@ def check_cc(cc, per_clock: float, old_k3=None):
                          "bound_ms": bound_ms, "bound_by": bound_by,
                          "chain_bound_ms": chain_ms, "sm_clock_mhz": clock,
                          "cell_ops_per_clock": per_clock,
-                         "rounds": int(rounds.max()), "library_ms": None})
+                         "rounds": int(rounds.max()), "library_ms": None,
+                         "path": None})
             if old_k3 is not None:
                 if not torch.equal(old_k3(occ, iters), lab):
                     fail("[b] K3: parent and change differ")
@@ -841,7 +856,7 @@ def check_cc(cc, per_clock: float, old_k3=None):
                  "bound_by": bound_by, "chain_bound_ms": chain_ms,
                  "sm_clock_mhz": clock, "cell_ops_per_clock": per_clock,
                  "rounds": int(rounds[0]),
-                 "library_ms": None})
+                 "library_ms": None, "path": None})
     return rows
 
 
@@ -1028,7 +1043,8 @@ def check_register_clouds(tp, tn, sp, sn, R, t, gen, cfg, device):
     checked.  (g) ``register_files`` on the same clouds written as PLY must
     give the same transform.  Returns a dict: that run's ``launches``, the
     (occ, iters) of each K3 launch (``k3_grids``), its ``extractions``
-    ((planes, stats) per cloud), its transform ``T``, and the ``walls``."""
+    ((planes, stats) per cloud), its transform ``T``, (g)'s transform
+    ``files_T``, and the ``walls``."""
     from plade_tpu_torch import pipeline
     from plade_tpu_torch.core import types as ptypes
     from plade_tpu_torch.extract import ransac
@@ -1158,7 +1174,7 @@ def check_register_clouds(tp, tn, sp, sn, R, t, gen, cfg, device):
     if drot >= FILES_TOL_DEG or dtrans >= FILES_TOL_T:
         fail("[g] register_files disagrees with register_clouds")
     return dict(launches=launches, k3_grids=k3_grids,
-                extractions=extractions, T=T, walls=walls)
+                extractions=extractions, T=T, files_T=Tf, walls=walls)
 
 
 def reset_counts():
@@ -1410,24 +1426,45 @@ def check_options(scene, cfg, step_run):
     return paths, at_shape
 
 
+#: the start-up of a CLI process before it registers: ``import torch``, the
+#: port's CLI modules, then the CUDA context; prints the three times
+STARTUP_PROBE = (
+    "import time; t0 = time.perf_counter(); import torch; "
+    "t1 = time.perf_counter(); import plade_tpu_torch.cli.main, "
+    "plade_tpu_torch.pipeline; t2 = time.perf_counter(); "
+    "torch.zeros(1, device='cuda'); torch.cuda.synchronize(); "
+    "print(t1 - t0, t2 - t1, time.perf_counter() - t2)")
+#: the settings of ``bench.py``'s batch pairs (bench.py:84-89), as
+#: ``make_scan_sequence`` keywords; phase (n) changes only ``step``
+SCAN_SETTINGS = dict(overlap_radius=3.4, step=2.0, n_rooms=3,
+                     n_per_plane=9000, noise=0.02, size=4.0, extra_planes=3,
+                     normal_noise_deg=3.0, max_angle=1.0, max_trans=0.6)
+
+
+def scan_pairs(cfg):
+    """The 4 distinct synthetic scan pairs of (l): ``make_scan_sequence``
+    at ``SCAN_SETTINGS`` from rng 1000 + b, b = 1..4.  Returns (pairs of
+    (target points, normals, source points, normals), ground truth 4x4
+    target-from-source transforms)."""
+    from plade_tpu_torch.io.synthetic import make_scan_sequence
+    pairs, truth = [], []
+    for b in range(1, 5):
+        scans, poses = make_scan_sequence(
+            np.random.default_rng(1000 + b), n_scans=2,
+            n_points=min(cfg.max_points, 100000), **SCAN_SETTINGS)
+        pairs.append((*scans[0], *scans[1]))
+        truth.append(np.linalg.inv(poses[0]) @ poses[1])
+    return pairs, truth
+
+
 def check_array_pairs(cfg):
     """(l) ``register_array_pairs`` on 4 distinct synthetic scan pairs at
     the settings of ``bench.py``'s batch pairs: every pair succeeds; pose
     errors against the scans' ground truth are printed.  Returns the run's
     launches."""
     from plade_tpu_torch.dist.mesh import register_array_pairs
-    from plade_tpu_torch.io.synthetic import make_scan_sequence
     from plade_tpu_torch.kernels import nn
-    pairs, truth = [], []
-    for b in range(1, 5):
-        scans, poses = make_scan_sequence(
-            np.random.default_rng(1000 + b), n_scans=2,
-            n_points=min(cfg.max_points, 100000), overlap_radius=3.4,
-            step=2.0, n_rooms=3, n_per_plane=9000, noise=0.02, size=4.0,
-            extra_planes=3, normal_noise_deg=3.0, max_angle=1.0,
-            max_trans=0.6)
-        pairs.append((*scans[0], *scans[1]))
-        truth.append(np.linalg.inv(poses[0]) @ poses[1])
+    pairs, truth = scan_pairs(cfg)
     reset_counts()
     t0 = time.perf_counter()
     outs = register_array_pairs(pairs, cfg, seed=0)
@@ -1448,6 +1485,262 @@ def check_array_pairs(cfg):
     if min(launches.values()) < 1:
         fail(f"[l] a kernel was not launched: {launches}")
     return launches
+
+
+def result_matrices(path: str, count: int):
+    """The ``count`` (target, source, 4x4) blocks of a CLI result file,
+    read with the port's viewer reader; fails if one does not parse."""
+    from plade_tpu_torch.cli.viewer import _parse_results
+    blocks = [_parse_results(path, k) for k in range(count)]
+    if any(b is None for b in blocks) or _parse_results(path, count):
+        fail(f"{path}: not {count} parsable result blocks")
+    return blocks
+
+
+def run_cli(tag, argv, problems):
+    """``plade_tpu_torch.cli.main(argv)`` in this process with the counts
+    at 0; a non-zero exit is added to ``problems``.  Returns (launches,
+    wall seconds)."""
+    from plade_tpu_torch.cli.main import main as cli_main
+    from plade_tpu_torch.kernels import nn
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rc = cli_main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        problems.append(f"{tag} exit code {rc}")
+    return dict(nn.LAUNCHES), wall
+
+
+def check_cli(scene, files_T, cfg):
+    """(m) the command line on the card at the default ``PladeConfig``.
+    A subprocess ``python -m plade_tpu_torch.cli T.ply S.ply OUT --profile
+    DIR`` (no ``--device``) on the room of (c): exit 0, its matrix within
+    the pose limits and within 1e-4 of (g)'s ``register_files`` transform
+    ``files_T``, and its trace holding K1, K2 and K3 kernel events; the same
+    without ``--profile``, for the start-up cost.  Then ``main`` in this
+    process, each run with the counts at 0: single, ``--icp``, batch over
+    the scan pairs of (l) sequentially and with ``--device-batch`` (every
+    pair within the limits), and ``view`` to PLY and to HTML.  Returns the
+    launches by path."""
+    import os
+
+    import plade_tpu_torch
+    from plade_tpu_torch.io.ply import read_ply, write_ply
+    tp, tn, sp, sn, R, t = scene
+    root = Path(plade_tpu_torch.__file__).resolve().parent.parent
+    card = gpu_info()
+    problems, paths = [], {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        tgt, src = str(tmp / "target.ply"), str(tmp / "source.ply")
+        write_ply(tgt, tp, tn)
+        write_ply(src, sp, sn)
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            [str(root)] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+        sub = {}
+        for mode, extra in (("profiled", ["--profile", str(tmp / "trace")]),
+                            ("plain", [])):
+            out = tmp / f"sub_{mode}.txt"
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-m", "plade_tpu_torch.cli", tgt, src,
+                 str(out)] + extra, cwd=root, env=env, capture_output=True,
+                text=True, timeout=600)
+            sub[mode] = time.perf_counter() - t0
+            if proc.returncode != 0:
+                fail(f"[m] python -m plade_tpu_torch.cli ({mode}) exited "
+                     f"{proc.returncode}:\n{proc.stdout[-3000:]}\n"
+                     f"{proc.stderr[-3000:]}")
+            (_, _, T), = result_matrices(str(out), 1)
+            dT = float(np.abs(T - files_T).max())
+            rot, trans = check_pose(f"[m] subprocess ({mode})", T, R, t,
+                                    problems)
+            print(f"[m] subprocess `python -m plade_tpu_torch.cli` "
+                  f"({mode}, no --device): exit 0 in {sub[mode]:.2f} s; "
+                  f"rotation error {rot:.6f} deg, translation error "
+                  f"{trans:.6f}; differs from (g)'s register_files by "
+                  f"{dT:.3e} at most", flush=True)
+            if dT >= 1e-4:
+                problems.append(f"[m] subprocess ({mode}) transform differs "
+                                f"from register_files' by {dT}")
+        # what a process pays before it registers: the interpreter, the
+        # imports and the CUDA context (timed inside and around it)
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-c", STARTUP_PROBE], cwd=root, env=env,
+            capture_output=True, text=True, timeout=300)
+        sub["startup"] = time.perf_counter() - t0
+        if proc.returncode != 0:
+            fail(f"[m] start-up probe exited {proc.returncode}: "
+                 f"{proc.stderr[-3000:]}")
+        inside = [float(x) for x in proc.stdout.split()]
+        events = json.loads((tmp / "trace" / "trace.json").read_text())[
+            "traceEvents"]
+        from plade_tpu_torch.io import native
+        print(f"[m] native PLY reader (plade_tpu_torch/native, built by make "
+              f"at first use): {'built' if native.available() else 'absent'}"
+              "; without it the numpy reader reads", flush=True)
+        kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+        found = {k: sum(k in name for name in kernels) for k in
+                 ("nn_kernel", "oriented_kernel", "close_label_kernel")}
+        print(f"[m] --profile trace: {len(events)} events, {len(kernels)} "
+              f"kernel events; K2 nn_kernel {found['nn_kernel']}, K1 "
+              f"oriented_kernel {found['oriented_kernel']}, K3 "
+              f"close_label_kernel {found['close_label_kernel']}", flush=True)
+        if min(found.values()) < 1:
+            problems.append(f"[m] trace lacks a kernel: {found}")
+
+        # in this process: the counts count
+        single = str(tmp / "single.txt")
+        paths["cli_single"], w_single = run_cli("[m] single",
+                                                [tgt, src, single], problems)
+        (_, _, T), = result_matrices(single, 1)
+        rot, trans = check_pose("[m] single", T, R, t, problems)
+        print(f"[m] single: {w_single:.3f} s a pair, rotation error "
+              f"{rot:.6f} deg, translation error {trans:.6f}; launches "
+              f"{paths['cli_single']}; subprocess start-up cost "
+              f"{sub['plain'] - w_single:.2f} s (plain subprocess wall "
+              f"{sub['plain']:.2f} s minus this): a process that imports "
+              f"and makes the CUDA context takes {sub['startup']:.2f} s "
+              f"(inside it: import torch {inside[0]:.2f} s, the port "
+              f"{inside[1]:.2f} s, the context {inside[2]:.2f} s), the "
+              f"rest {sub['plain'] - w_single - sub['startup']:.2f} s is "
+              f"the first registration's extra over a warm one; --profile "
+              f"adds {sub['profiled'] - sub['plain']:.2f} s; {card}",
+              flush=True)
+        c = paths["cli_single"]
+        if c["oriented_min_dist_sq"] < 2 or c["nearest_neighbor"] < 4 \
+                or c["close_and_label_lanes"] < 1:
+            problems.append(f"[m] single launches {c} below K1 >= 2, "
+                            "K2 >= 4, K3 >= 1")
+        icp = str(tmp / "icp.txt")
+        paths["cli_icp"], w_icp = run_cli("[m] --icp",
+                                          [tgt, src, icp, "--icp"], problems)
+        (_, _, T), = result_matrices(icp, 1)
+        rot, trans = check_pose("[m] --icp", T, R, t, problems)
+        print(f"[m] --icp: {w_icp:.3f} s a pair, rotation error {rot:.6f} "
+              f"deg, translation error {trans:.6f}; launches "
+              f"{paths['cli_icp']}; {card}", flush=True)
+        if paths["cli_icp"]["nearest_neighbor"] < 25:
+            problems.append(f"[m] --icp K2 launches {paths['cli_icp']} < 25")
+
+        # batch: the scan pairs of (l) as PLY files
+        pairs, truth = scan_pairs(cfg)
+        pairs_file = tmp / "pairs.txt"
+        names = []
+        for i, (a, an, b, bn) in enumerate(pairs):
+            for side, (p, n) in (("t", (a, an)), ("s", (b, bn))):
+                names.append(str(tmp / f"pair{i}_{side}.ply"))
+                write_ply(names[-1], p, n)
+        pairs_file.write_text("\n".join(names) + "\n")
+        for path, extra in (("cli_batch", []),
+                            ("cli_device_batch", ["--device-batch"])):
+            out = str(tmp / f"{path}.txt")
+            paths[path], wall = run_cli(f"[m] {path}",
+                                        [str(pairs_file), out] + extra,
+                                        problems)
+            errs = []
+            for k, ((_, _, T), gt) in enumerate(
+                    zip(result_matrices(out, len(pairs)), truth)):
+                errs.append(check_pose(f"[m] {path} pair {k}:", T,
+                                       gt[:3, :3], gt[:3, 3], problems))
+            print(f"[m] batch{' --device-batch' if extra else ''}: "
+                  f"{len(pairs)} pairs, {wall / len(pairs):.3f} s a pair; "
+                  "pose errors (deg, translation) "
+                  f"{[(round(r, 4), round(e, 5)) for r, e in errs]}; "
+                  f"launches {paths[path]}; {card}", flush=True)
+
+        # view: the single result as registered PLYs and as HTML
+        prefix, html = str(tmp / "view"), str(tmp / "view.html")
+        run_cli("[m] view PLY", ["view", single, prefix], problems)
+        run_cli("[m] view HTML", ["view", single, html], problems)
+        tv, _ = read_ply(prefix + "_target.ply")
+        sv, _ = read_ply(prefix + "_source_registered.ply")
+        gap = float(np.abs(sv - (sp @ R.T + t)).max())
+        print(f"[m] view: {tv.shape[0]} + {sv.shape[0]} points as PLY (the "
+              f"registered source within {gap:.2e} of the true pose's), "
+              f"HTML {Path(html).stat().st_size} bytes", flush=True)
+        if tv.shape != tp.shape or sv.shape != sp.shape or gap > 0.05:
+            problems.append(f"[m] view PLY: shapes {tv.shape} {sv.shape}, "
+                            f"gap {gap}")
+    for path, counts in paths.items():
+        if min(counts.values()) < 1:
+            problems.append(f"[m] {path}: a kernel was not launched: "
+                            f"{counts}")
+    if problems:
+        fail("; ".join(problems))
+    return paths
+
+
+def check_scene(cfg):
+    """(n) scene mode on the card: 5 scans (``make_scan_sequence(rng(2000),
+    n_scans=5, n_points=100000)`` at ``SCAN_SETTINGS`` with step 1.4),
+    ``scene DIR OUT --loop-stride 2`` with ``--device-batch`` and
+    sequentially (4 + 3 pairs each): every pair succeeds, every scan's pose
+    within the limits of the ground truth rebased on scan 0, and
+    ``posegraph.synchronize`` on the run's edges on the card and on the CPU
+    within 1e-4.  Returns the launches by path."""
+    from plade_tpu_torch.dist import posegraph
+    from plade_tpu_torch.io.synthetic import make_scan_sequence, write_scene
+    n = 5
+    scans, poses = make_scan_sequence(
+        np.random.default_rng(2000), n_scans=n,
+        n_points=min(cfg.max_points, 100000),
+        **dict(SCAN_SETTINGS, step=1.4))
+    problems, paths = [], {}
+    card = gpu_info()
+    with tempfile.TemporaryDirectory() as tmp:
+        d = write_scene(str(Path(tmp) / "scene"), scans, poses)
+        for path, extra in (("cli_scene", ["--device-batch"]),
+                            ("cli_scene_sequential", [])):
+            out = str(Path(tmp) / f"{path}.txt")
+            with recorded_calls(posegraph, "from_edges",
+                                lambda a, out: a[0]) as graphs:
+                paths[path], wall = run_cli(
+                    f"[n] {path}", ["scene", d, out, "--loop-stride", "2"]
+                    + extra, problems)
+            edges, = graphs
+            lines = Path(out).read_text().splitlines()
+            errs = []
+            for k in range(n):
+                T = np.asarray([lines[5 * k + 1 + r].split()
+                                for r in range(4)], np.float64)
+                gt = np.linalg.inv(poses[0]) @ poses[k]
+                rot, trans = check_pose(f"[n] {path} scan {k}:", T,
+                                        gt[:3, :3], gt[:3, 3], problems)
+                errs.append((round(rot, 4), round(trans, 5)))
+            if len(edges) != 7:
+                problems.append(f"[n] {path}: {len(edges)} of 7 pairs "
+                                "registered")
+            on = {}
+            for dev in ("cuda", "cpu"):
+                g = posegraph.from_edges(edges, n, device=dev)
+                Rk, tk = posegraph.synchronize(g, n)
+                ang, terr = posegraph.residuals(g, Rk, tk)
+                on[dev] = [x.cpu().numpy() for x in (Rk, tk, ang, terr)]
+            dR = float(np.abs(on["cuda"][0] - on["cpu"][0]).max())
+            dt = float(np.abs(on["cuda"][1] - on["cpu"][1]).max())
+            print(f"[n] scene{' --device-batch' if extra else ''} "
+                  f"--loop-stride 2: {len(edges)} edges, "
+                  f"{wall / 7:.3f} s a pair ({wall:.2f} s); scan pose errors "
+                  f"vs ground truth (deg, translation) {errs}; edge "
+                  f"residuals (deg) {np.round(on['cuda'][2], 4).tolist()}, "
+                  f"(translation) {np.round(on['cuda'][3], 5).tolist()}; "
+                  f"synchronize card vs CPU: R {dR:.2e}, t {dt:.2e}; "
+                  f"launches {paths[path]}; {card}", flush=True)
+            if dR >= 1e-4 or dt >= 1e-4:
+                problems.append(f"[n] {path}: synchronize on the card and "
+                                f"the CPU differ by {dR} / {dt}")
+    for path, counts in paths.items():
+        if min(counts.values()) < 1:
+            problems.append(f"[n] {path}: a kernel was not launched: "
+                            f"{counts}")
+    if problems:
+        fail("; ".join(problems))
+    return paths
 
 
 def main():
@@ -1594,6 +1887,9 @@ def main():
     # (j), (k) the options; (l) the batch entry
     paths, icp_k2 = check_options(scene, cfg, step_run)
     paths["register_array_pairs"] = check_array_pairs(cfg)
+    # (m) the command line, (n) scene mode
+    paths.update(check_cli(scene, clouds_run["files_T"], cfg))
+    paths.update(check_scene(cfg))
     paths.update({"register_pair_device": step_run["launches"],
                   "register_clouds": clouds_run["launches"],
                   "register_with_planes": planes_launches})
@@ -1602,19 +1898,20 @@ def main():
                 row["shape"] == f"{ICP_SHAPE[0]}x{ICP_SHAPE[1]}":
             row["path"] = "enable_icp"
         path = row.setdefault("path", "register_pair_device")
-        row["launches"] = paths[path].get(row["name"], 0)
-        if row["path"] == "enable_icp":
+        row["launches_by_path"] = {p: counts.get(row["name"], 0)
+                                   for p, counts in paths.items()}
+        if path is None:
+            # measured on chip_smoke's own grids, on no main path (K3' is
+            # the L = 1 entry the reference's tests call; the paths run the
+            # same kernel through close_and_label_lanes)
+            row["on_main_path"] = False
+            row["launches"] = 0
+        elif path == "enable_icp":
             # its path's K2 launches at this shape (the rescore's are at
             # 131072 x 16384)
             row["launches"] = icp_k2
-        row["launches_by_path"] = {p: counts.get(row["name"], 0)
-                                   for p, counts in paths.items()}
-        if row["name"] == "close_and_label":
-            # the L = 1 entry is on no main path (the reference's tests call
-            # it); the paths run the same kernel through close_and_label_lanes
-            row["on_main_path"] = False
-            row["path"] = None
-            row["launches"] = 0
+        else:
+            row["launches"] = paths[path].get(row["name"], 0)
 
     print(json.dumps({"kernels": rows}))
     print(gpu_info())

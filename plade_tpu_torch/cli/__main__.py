@@ -1,0 +1,4 @@
+import sys
+from .main import main
+
+sys.exit(main())

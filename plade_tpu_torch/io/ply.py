@@ -1,9 +1,10 @@
-"""Host-side PLY reader/writer (numpy).
+"""Host-side PLY reader/writer (numpy, with the native C++ reader).
 
-A copy of the numpy path of ``plade_tpu/io/ply.py`` (``_read_ply_numpy``,
-its helpers and ``write_ply``) without the native C++ reader: that package
-imports JAX when it is imported, and this one must run where JAX is absent.
-``tests/test_torch_core.py`` pins the copy to the original.
+A copy of ``plade_tpu/io/ply.py``: that package imports JAX when it is
+imported, and this one must run where JAX is absent.
+``tests/test_torch_core.py`` pins the copy to the original.  ``read_ply``
+takes the port's own native reader (``io/native.py``) when it builds, and
+the numpy reader otherwise, as the original does.
 
 Parses ascii and binary little/big-endian PLY, merges ``x,y,z`` into points
 and ``nx,ny,nz`` into normals; registration requires normals, but the
@@ -29,7 +30,15 @@ def read_ply(path: str):
     """Read a PLY file.
 
     Returns ``(points, normals)`` as float32 arrays; ``normals`` is None when
-    the file has no nx/ny/nz properties."""
+    the file has no nx/ny/nz properties.  Uses the native C++ reader
+    (plade_tpu_torch/native/ply_io.cpp) when built; falls back to pure
+    numpy."""
+    from . import native
+    if native.available():
+        try:
+            return native.read_ply(path)
+        except ValueError:
+            pass  # fall through for formats the native reader rejects
     return _read_ply_numpy(path)
 
 

@@ -3,9 +3,10 @@
 A numpy-only copy of the scene generators of ``plade_tpu/io/synthetic.py``
 (that package imports JAX when it is imported): ``perturb_normals``,
 ``make_plane_points``, ``make_room``, ``make_world``,
-``make_scan_sequence``, ``random_rigid`` and ``transform_cloud``,
-unchanged, so the same seed gives bit-identical scenes (pinned by
-``tests/test_torch_core.py``).
+``make_scan_sequence``, ``write_scene``, ``random_rigid`` and
+``transform_cloud``, unchanged, so the same seed gives bit-identical scenes
+(pinned by ``tests/test_torch_core.py``; ``write_scene`` by
+``tests/test_torch_host_io.py``).
 
 The reference has no test suite (SURVEY section 4); these generators provide
 the analytic ground truth its sample data can't: scenes made of known planes
@@ -178,6 +179,23 @@ def make_scan_sequence(rng, n_scans=6, n_points=60000, overlap_radius=3.2,
         scans.append((sp, sn))
         poses.append(T)
     return scans, np.stack(poses)
+
+
+def write_scene(dirpath, scans, gt_poses, gt_name="groundtruth.txt"):
+    """Write scans + ground truth in the directory layout io/resso.py
+    loads: scan_XX.ply files and a stacked-4x4 ground-truth file."""
+    import os
+
+    from .ply import write_ply
+    os.makedirs(dirpath, exist_ok=True)
+    for i, (p, n) in enumerate(scans):
+        write_ply(os.path.join(dirpath, f"scan_{i:02d}.ply"), p, n)
+    with open(os.path.join(dirpath, gt_name), "w") as f:
+        for i, T in enumerate(gt_poses):
+            f.write(f"scan_{i:02d}\n")
+            for row in T:
+                f.write(" ".join(f"{v:.9f}" for v in row) + "\n")
+    return dirpath
 
 
 def random_rigid(rng, max_angle=np.pi, max_trans=1.0):

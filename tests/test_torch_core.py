@@ -204,7 +204,10 @@ def test_port_imports_without_jax():
             "plade_tpu_torch.core.convert; "
             "import plade_tpu_torch.io.synthetic, plade_tpu_torch.io.ply, "
             "plade_tpu_torch.extract.ransac, plade_tpu_torch.kernels.cc, "
-            "plade_tpu_torch.dist.mesh; "
+            "plade_tpu_torch.dist.mesh, plade_tpu_torch.dist.posegraph, "
+            "plade_tpu_torch.cli.main, plade_tpu_torch.cli.scene, "
+            "plade_tpu_torch.cli.viewer, plade_tpu_torch.io.resso, "
+            "plade_tpu_torch.io.native, plade_tpu_torch.io.vg; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "assert not any(m.startswith('plade_tpu.') or m == 'plade_tpu' "
             "for m in sys.modules), 'plade_tpu imported'; "

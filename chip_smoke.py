@@ -15,7 +15,12 @@ Phases, in order; any failed check exits non-zero:
     copy of one reference in every reference slice (the lowest index must
     win across the kernels' atomic merge); time each at the main shapes
     beside its plain version, its bound and, for K2, the yardstick
-    ``torch.cdist(q, r).min(dim=1)``.  With ``--parent DIR`` (a checkout of
+    ``torch.cdist(q, r).min(dim=1)``; the same for the batched main path's
+    shapes with a pair axis of 8 (K2 8 x 131072 x 16384 and 8 x 16384 x
+    16384, K1 8 x 131072 x 16384 and 8 x 262144 x 16384: one launch for
+    all pairs, each pair also bit for bit its own unbatched launch; the
+    library yardstick ``cdist`` + ``min`` pair by pair).  With
+    ``--parent DIR`` (a checkout of
     the parent tree), also build DIR's ``csrc/nn.cu`` and ``csrc/cc.cu``
     and time its K1/K2/K3 against this tree's in turns on the same inputs
     (same bits required).  K3 (close + connected-component labelling) bit
@@ -69,26 +74,43 @@ Phases, in order; any failed check exits non-zero:
     counters 0;
 (l) ``dist.mesh.register_array_pairs`` on 4 distinct synthetic scan pairs
     (``make_scan_sequence`` at the settings of ``bench.py``'s batch pairs):
-    every pair succeeds;
+    every pair succeeds, in one lockstep batch (K2 4 launches, K3 one a
+    lockstep round over 4 x 2 x 6 lanes);
 (m) the command line at the default ``PladeConfig``: ``python -m
     plade_tpu_torch.cli T.ply S.ply OUT --profile DIR`` as a subprocess
     without ``--device`` on the room of (c) (exit 0, the result within the
     pose limits and within 1e-4 of (g)'s, K1, K2 and K3 kernel events in
     the trace), once more without ``--profile`` (the start-up cost), then
     ``cli.main`` in this process: single, ``--icp``, batch over the scan
-    pairs of (l) sequentially and with ``--device-batch``, and ``view`` to
-    PLY and HTML, each within the pose limits with its launches counted;
+    pairs of (l) sequentially and with ``--device-batch`` (one lockstep
+    batch: K2 4 launches, K3 at L = 48), and ``view`` to PLY and HTML, each
+    within the pose limits with its launches counted;
 (n) scene mode: 5 scans (``make_scan_sequence(rng(2000))`` at (l)'s
     settings with step 1.4), ``scene DIR OUT --loop-stride 2`` with
-    ``--device-batch`` and sequentially: every scan's pose within the limits
-    of the ground truth, and the pose graph solved on the card and on the
-    CPU within 1e-4.
+    ``--device-batch`` (its 7 pairs in one lockstep batch: K2 4 launches,
+    K3 at L = 84) and sequentially: every scan's pose within the limits of
+    the ground truth, and the pose graph solved on the card and on the CPU
+    within 1e-4;
+(o) ``dist.mesh.register_batch`` on the 8 pairs of ``bench.py``'s batch
+    (pair 0 the room of (c), pairs 1-7 ``make_scan_sequence(rng(1000 +
+    b))`` at (l)'s settings) at B = 8, 4, 2 and pair after pair (B = 1),
+    one warm-up and three timed runs each, each fenced by a host read:
+    every pair within the pose limits, each pair's transform within 1e-4
+    of its B = 1 result with the same success; the wall per pair and the
+    peak memory at each B, kernels and host syncs a batch, K1/K2/K3
+    launches with their shapes (K2 4 launches at 8 x 131072 x 16384, K1
+    over 8 pairs, K3 once a lockstep round at L = 96), the stage table of
+    one profiled B = 8 batch, K3 on that run's grids as in (f), and an
+    ``enable_icp`` batch (K2 21 times at 8 x 16384 x 16384).
 
 The last lines are the kernels' JSON line (one row per kernel and main-path
 shape; each row's ``launches`` counts its path's run and
-``launches_by_path`` every path's; the rows of chip_smoke's own K3 grids
-lie on no path: ``"path": null``, ``"launches": 0``), the card's name and
-power limit from nvidia-smi, and ``{"ok": true, "device": {...}}``.
+``launches_by_path`` every path's; the batched rows (``"path":
+"register_batch"``) count their shape's launches in (o)'s B = 8 run (the
+final ICP's in its ``enable_icp`` batch); the rows of chip_smoke's own K3
+grids lie on no path: ``"path": null``, ``"launches": 0``), the card's
+name and power limit from nvidia-smi, and ``{"ok": true, "device":
+{...}}``.
 """
 from __future__ import annotations
 
@@ -121,6 +143,12 @@ K2_SHAPES = ((131072, 16384), (16384, 16384))
 #: the final ICP's K2 launches: ``PladeConfig.icp_iters`` + 1
 ICP_SHAPE = (16384, 16384)
 K1_SHAPES = ((131072, 16384), (262144, 16384))
+#: pairs of a lockstep batch in (o) (``bench.py``'s B) and the batched main
+#: path's (P, Q, T): K2 in the rescore ICP and, with ``enable_icp``, the
+#: final ICP; K1 in overlap phase 2 and the rescore
+BATCH = 8
+K2_BATCH_SHAPES = ((BATCH, 131072, 16384), (BATCH, 16384, 16384))
+K1_BATCH_SHAPES = ((BATCH, 131072, 16384), (BATCH, 262144, 16384))
 #: edge shapes, held bit for bit too: ragged Q and T, one query, one
 #: reference, and small Q against many references (the finest reference
 #: split, with a duplicate of reference 5 in every slice)
@@ -198,10 +226,10 @@ def gpu_info() -> str:
         check=True, timeout=60).stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps: int = 5) -> float:
-    """Median over ``reps`` of one call's device time, in ms, after three
+def cuda_ms(fn, reps: int = 5, warm: int = 3) -> float:
+    """Median over ``reps`` of one call's device time, in ms, after ``warm``
     untimed calls (the first calls after other work read slower)."""
-    for _ in range(3):
+    for _ in range(warm):
         fn()
     times = []
     for _ in range(reps):
@@ -391,11 +419,107 @@ def check_kernels(nn):
     return rows, inputs
 
 
+def batch_inputs(P: int, Q: int, T: int):
+    """``kernel_inputs`` of P pairs (pair p from seed p: every pair has its
+    own tie rows and copies of its reference 5 in every slice), stacked on
+    a leading pair axis."""
+    per = [kernel_inputs(Q, T, seed=p) for p in range(P)]
+    return tuple(torch.stack([x[k] for x in per]).contiguous()
+                 for k in range(4))
+
+
+def check_batched_kernels(nn):
+    """(b) K2 and K1 with the pair axis at the batched main path's shapes:
+    one launch over all pairs, bit for bit (d2 and argmin) against the
+    batched plain version and against each pair's unbatched launch, the
+    tie rule within each pair; the kernel, plain and library times (the
+    yardstick ``cdist`` + ``min`` pair by pair: one (P, Q, T) matrix would
+    not fit) and the bound (P times one pair's).  Returns the rows of the
+    kernels' JSON line (``"path": "register_batch"``)."""
+    rows = []
+    k2_shapes, k1_shapes = set(K2_BATCH_SHAPES), set(K1_BATCH_SHAPES)
+    for P, Q, T in sorted(k2_shapes | k1_shapes):
+        q, qn, r, rn = batch_inputs(P, Q, T)
+        d, i = nn.nearest_neighbor(q, r)
+        o = nn.oriented_min_dist_sq(q, qn, r, rn, NORMAL_COS)
+        torch.cuda.synchronize()
+        dp, ip = nn.nearest_neighbor_plain(q, r)
+        op = nn.oriented_min_dist_sq_plain(q, qn, r, rn, NORMAL_COS)
+        slices = (f"{nn.reference_slices(Q, T, pairs=P)} (K2) / "
+                  f"{nn.reference_slices(Q, T, True, pairs=P)} (K1)")
+        if not (torch.equal(d, dp) and torch.equal(i, ip)
+                and torch.equal(o, op)):
+            fail(f"[b] batched K1/K2 P={P} Q={Q} T={T} ({slices} slices) "
+                 "differ from the plain versions")
+        for p in range(P):
+            d1, i1 = nn.nearest_neighbor(q[p], r[p])
+            o1 = nn.oriented_min_dist_sq(q[p], qn[p], r[p], rn[p],
+                                         NORMAL_COS)
+            if not (torch.equal(d[p], d1) and torch.equal(i[p], i1)
+                    and torch.equal(o[p], o1)):
+                fail(f"[b] batched K1/K2 P={P} Q={Q} T={T}: pair {p} differs "
+                     "from its unbatched launch")
+        if not (i[:, 0:4] == 5).all() or not torch.isinf(o[:, 3]).all():
+            fail(f"[b] batched K1/K2 P={P} Q={Q} T={T}: tie rule or gate "
+                 "broken")
+        print(f"[b] P={P} Q={Q} T={T}: {slices} reference slices (one pair "
+              f"alone: {nn.reference_slices(Q, T)} / "
+              f"{nn.reference_slices(Q, T, True)}); batched K2 d2 and argmin "
+              "and K1 d2 bit-identical to the batched plain versions and to "
+              "each pair's unbatched launch", flush=True)
+        shape = f"{P}x{Q}x{T}"
+        if (P, Q, T) in k2_shapes:
+            ms = cuda_ms(lambda: nn.nearest_neighbor(q, r))
+            plain_ms = cuda_ms(lambda: nn.nearest_neighbor_plain(q, r),
+                               reps=1, warm=1)
+            library_ms = cuda_ms(lambda: [torch.cdist(q[p], r[p]).min(dim=1)
+                                          for p in range(P)], reps=3)
+            bound_ms, bound_by = bound(P * K2_FLOP * Q * T,
+                                       P * (12 * (Q + T) + 8 * Q))
+            print(f"[b] K2 nearest_neighbor P={P} Q={Q} T={T}: kernel "
+                  f"{ms:.4f} ms, plain {plain_ms:.3f} ms, cdist+min pair by "
+                  f"pair {library_ms:.3f} ms, bound {bound_ms:.4f} ms "
+                  f"({bound_by}, {100 * bound_ms / ms:.1f}% of it)",
+                  flush=True)
+            rows.append({"name": "nearest_neighbor", "route": "cuda",
+                         "source": "plade_tpu_torch/csrc/nn.cu",
+                         "replaces": "plade_tpu/kernels/nn.py:87",
+                         "shape": shape, "path": "register_batch",
+                         "max_abs_err": max_abs_diff(d, dp), "ms": ms,
+                         "plain_ms": plain_ms, "bound_ms": bound_ms,
+                         "bound_by": bound_by, "library_ms": library_ms})
+        if (P, Q, T) in k1_shapes:
+            ms = cuda_ms(lambda: nn.oriented_min_dist_sq(q, qn, r, rn,
+                                                         NORMAL_COS))
+            plain_ms = cuda_ms(lambda: nn.oriented_min_dist_sq_plain(
+                q, qn, r, rn, NORMAL_COS), reps=1, warm=1)
+            bound_ms, bound_by = bound(P * K1_FLOP * Q * T,
+                                       P * (24 * (Q + T) + 4 * Q))
+            print(f"[b] K1 oriented_min_dist_sq P={P} Q={Q} T={T}: kernel "
+                  f"{ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
+                  f"{bound_ms:.4f} ms ({bound_by}, "
+                  f"{100 * bound_ms / ms:.1f}% of it)", flush=True)
+            rows.append({"name": "oriented_min_dist_sq", "route": "cuda",
+                         "source": "plade_tpu_torch/csrc/nn.cu",
+                         "replaces": "plade_tpu/kernels/nn.py:182",
+                         "shape": shape, "path": "register_batch",
+                         "max_abs_err": max_abs_diff(o, op), "ms": ms,
+                         "plain_ms": plain_ms, "bound_ms": bound_ms,
+                         "bound_by": bound_by, "library_ms": None})
+        del q, qn, r, rn, d, i, o, dp, ip, op
+    for row in rows:
+        if row["name"] == "nearest_neighbor" and row["shape"] == \
+                "x".join(map(str, K2_BATCH_SHAPES[1])):
+            row["option"] = "enable_icp"
+    return rows
+
+
 def parent_libraries(parent: Path):
     """The parent tree's ``csrc/nn.cu`` and ``csrc/cc.cu`` built with this
     tree's flags into libraries of their own (one nvcc each, in parallel),
     with their entry points' signatures (the first port's K2 takes no key
-    scratch).  Returns (nn library, whether K2 takes keys, cc library)."""
+    scratch; the pair axis came later).  Returns (nn library, (whether K2
+    takes keys, whether K1/K2 take a pair count), cc library)."""
     import ctypes
 
     from plade_tpu_torch.kernels import build
@@ -409,13 +533,15 @@ def parent_libraries(parent: Path):
     dll = ctypes.CDLL(str(libs["nn"]))
     P, I = ctypes.c_void_p, ctypes.c_int
     keys = hasattr(dll, "plade_nn_ref_slices")
+    # the pair axis (a P argument before Q) came with plade_nn_abi
+    pairs = [I] if hasattr(dll, "plade_nn_abi") else []
     dll.plade_nearest_neighbor.argtypes = \
-        [P, P, P, P] + ([P] if keys else []) + [I, I, P]
+        [P, P, P, P] + ([P] if keys else []) + pairs + [I, I, P]
     dll.plade_oriented_min_dist_sq.argtypes = \
-        [P, P, P, P, ctypes.c_float, P, I, I, P]
+        [P, P, P, P, ctypes.c_float, P] + pairs + [I, I, P]
     cc_dll = ctypes.CDLL(str(libs["cc"]))
     cc_dll.plade_close_and_label.argtypes = [P, P, I, I, I, P]
-    return dll, keys, cc_dll
+    return dll, (keys, bool(pairs)), cc_dll
 
 
 def parent_k3(cc_dll):
@@ -432,11 +558,12 @@ def parent_k3(cc_dll):
     return run
 
 
-def compare_parent(nn, dll, keys, rows, inputs):
-    """The parent's K1/K2 (``dll``) against this tree's, on the inputs of
-    (b): the same bits, and each shape timed in turns parent, change,
-    change, parent.  Adds ``parent_ms`` (the two parent medians) to the
-    rows."""
+def bare_nn(dll, keys: bool, pairs: bool):
+    """K2 and K1 of a kernel library called straight through ``ctypes``
+    (one pair, no input checks, no device context; counts no launch), for
+    the turns of :func:`compare_parent`: parent and change are timed
+    through the same thin call, so only the kernels differ."""
+    one = [1] if pairs else []
 
     def k2(q, r):
         Q = q.shape[0]
@@ -446,43 +573,62 @@ def compare_parent(nn, dll, keys, rows, inputs):
                  .data_ptr()] if keys else []
         err = dll.plade_nearest_neighbor(
             q.data_ptr(), r.data_ptr(), d.data_ptr(), i.data_ptr(), *extra,
-            Q, r.shape[0], torch.cuda.current_stream().cuda_stream)
+            *one, Q, r.shape[0], torch.cuda.current_stream().cuda_stream)
         if err:
-            fail(f"parent K2 launch failed: {err}")
+            fail(f"bare K2 launch failed: {err}")
         return d, i
 
     def k1(q, qn, r, rn):
         d = torch.empty(q.shape[0], device="cuda")
         err = dll.plade_oriented_min_dist_sq(
             q.data_ptr(), qn.data_ptr(), r.data_ptr(), rn.data_ptr(),
-            NORMAL_COS, d.data_ptr(), q.shape[0], r.shape[0],
+            NORMAL_COS, d.data_ptr(), *one, q.shape[0], r.shape[0],
             torch.cuda.current_stream().cuda_stream)
         if err:
-            fail(f"parent K1 launch failed: {err}")
+            fail(f"bare K1 launch failed: {err}")
         return d
 
+    return k2, k1
+
+
+def compare_parent(nn, dll, keys, rows, inputs):
+    """The parent's K1/K2 (``dll``) against this tree's, on the inputs of
+    (b), both called through :func:`bare_nn`: the same bits (and this
+    tree's wrapper's), and each shape timed in turns parent, change,
+    change, parent.  Adds ``parent_ms`` and ``change_bare_ms`` (the two
+    medians of each) to the rows."""
+    from plade_tpu_torch.kernels.build import library
+    old_k2, old_k1 = bare_nn(dll, *keys)
+    new_k2, new_k1 = bare_nn(library(), True, True)
     for row in rows:
+        if row.get("path") == "register_batch":
+            continue
         Q, T = map(int, row["shape"].split("x"))
         q, qn, r, rn = inputs[(Q, T)]
         if row["name"] == "nearest_neighbor":
-            old = lambda: k2(q, r)                           # noqa: E731
-            new = lambda: nn.nearest_neighbor(q, r)          # noqa: E731
+            old = lambda: old_k2(q, r)                       # noqa: E731
+            new = lambda: new_k2(q, r)                       # noqa: E731
+            wrapped = nn.nearest_neighbor(q, r)
         else:
-            old = lambda: k1(q, qn, r, rn)                   # noqa: E731
-            new = lambda: nn.oriented_min_dist_sq(           # noqa: E731
-                q, qn, r, rn, NORMAL_COS)
+            old = lambda: old_k1(q, qn, r, rn)               # noqa: E731
+            new = lambda: new_k1(q, qn, r, rn)               # noqa: E731
+            wrapped = nn.oriented_min_dist_sq(q, qn, r, rn, NORMAL_COS)
         a, b = old(), new()
         torch.cuda.synchronize()
-        same = all(torch.equal(x, y) for x, y in zip(a, b)) \
-            if isinstance(a, tuple) else torch.equal(a, b)
+        same = all(torch.equal(x, y) and torch.equal(x, z)
+                   for x, y, z in zip(a, b, wrapped)) \
+            if isinstance(a, tuple) else (torch.equal(a, b)
+                                          and torch.equal(a, wrapped))
         if not same:
             fail(f"[b] parent and change differ: {row['name']} Q={Q} T={T}")
         turns = [cuda_ms(f, 9) for f in (old, new, new, old)]
         row["parent_ms"] = [turns[0], turns[3]]
-        print(f"[b] {row['name']} Q={Q} T={T}, parent vs change in turns: "
-              f"parent {turns[0]:.4f}, change {turns[1]:.4f}, change "
-              f"{turns[2]:.4f}, parent {turns[3]:.4f} ms (same bits)",
-              flush=True)
+        row["change_bare_ms"] = [turns[1], turns[2]]
+        print(f"[b] {row['name']} Q={Q} T={T}, parent vs change in turns, "
+              f"both through a bare ctypes call: parent {turns[0]:.4f}, "
+              f"change {turns[1]:.4f}, change {turns[2]:.4f}, parent "
+              f"{turns[3]:.4f} ms (same bits); through the wrapper (ms) "
+              f"{row['ms']:.4f}", flush=True)
 
 
 def generator_labels(points, gen_planes, max_planes):
@@ -1231,8 +1377,10 @@ def check_device_step(scene, cfg, clouds_run, clouds_table):
     K1/K2 launches, host syncs, wall and peak memory beside
     ``register_clouds``', and one profiled step (its kernels beside
     ``clouds_table``'s, (h)).  Returns a dict: the padded clouds, the
-    ``launches``, the K3 grids of the first timed run (``k3_grids``) and
-    that run's prepared clouds with their ``dsd`` (``prepared``)."""
+    ``launches``, the K3 grids of the first timed run (``k3_grids``), that
+    run's prepared clouds with their ``dsd`` (``prepared``: one
+    ``prepare_cloud`` call over both clouds, leading axis (target,
+    source)), its host syncs, the profiled step's kernels and the wall."""
     from plade_tpu_torch import pipeline
     from plade_tpu_torch.core import types as ptypes
     from plade_tpu_torch.extract import ransac
@@ -1325,7 +1473,9 @@ def check_device_step(scene, cfg, clouds_run, clouds_table):
           f"{table['plade.extract'][2]} vs "
           f"{clouds_table['plade.extract'][2]}", flush=True)
     return dict(clouds=(tgt, src), pad=pad, launches=launches,
-                k3_grids=k3_grids, prepared=prepared)
+                k3_grids=k3_grids, prepared=prepared, syncs=syncs,
+                kernels=table["(total)"][2],
+                wall=statistics.median(walls))
 
 
 def check_options(scene, cfg, step_run):
@@ -1346,8 +1496,8 @@ def check_options(scene, cfg, step_run):
     cfg_icp = dataclasses.replace(cfg, enable_icp=True)
     reset_counts()
     with recorded_calls(icp_mod, "nearest_neighbor",
-                        lambda a, out: (a[0].shape[0],
-                                        a[1].shape[0])) as shapes:
+                        lambda a, out: (a[0].shape[-2],
+                                        a[1].shape[-2])) as shapes:
         res = pipeline.register_pair_device(cfg_icp, pad)(tgt, src, 0)
         torch.cuda.synchronize()
     paths["enable_icp"] = dict(nn.LAUNCHES)
@@ -1365,7 +1515,9 @@ def check_options(scene, cfg, step_run):
 
     # (k) line confidence: a threshold at the 30% quantile of the source's
     # line confidences in (i), so that the cull drops part of its lines
-    prep, dsd = step_run["prepared"][1]
+    from plade_tpu_torch.core.ops import tree_map
+    (both, dsd2), = step_run["prepared"]
+    prep, dsd = tree_map(lambda x: x[1], both), dsd2[1]
     n_lines = int(prep.lines.count)
     conf = pipeline._line_confidence(prep.lines, prep.geom, dsd, cfg)
     thresh = float(torch.quantile(conf[:n_lines], 0.3))
@@ -1376,7 +1528,7 @@ def check_options(scene, cfg, step_run):
         res = pipeline.register_pair_device(cfg_lc, pad)(tgt, src, 0)
         torch.cuda.synchronize()
     paths["min_line_confidence"] = dict(nn.LAUNCHES)
-    kept = [int(k) for k in kept]
+    kept = [int(k) for c in kept for k in c.reshape(-1)]
     print(f"[k] min_line_confidence {thresh:.4g}: lines kept (target, "
           f"source) {kept}, source lines without the cull {n_lines}; "
           f"launches {paths['min_line_confidence']}", flush=True)
@@ -1441,14 +1593,14 @@ SCAN_SETTINGS = dict(overlap_radius=3.4, step=2.0, n_rooms=3,
                      normal_noise_deg=3.0, max_angle=1.0, max_trans=0.6)
 
 
-def scan_pairs(cfg):
-    """The 4 distinct synthetic scan pairs of (l): ``make_scan_sequence``
-    at ``SCAN_SETTINGS`` from rng 1000 + b, b = 1..4.  Returns (pairs of
-    (target points, normals, source points, normals), ground truth 4x4
-    target-from-source transforms)."""
+def scan_pairs(cfg, count: int = 4):
+    """The distinct synthetic scan pairs of (l) (4) and (o) (7):
+    ``make_scan_sequence`` at ``SCAN_SETTINGS`` from rng 1000 + b, b =
+    1..count.  Returns (pairs of (target points, normals, source points,
+    normals), ground truth 4x4 target-from-source transforms)."""
     from plade_tpu_torch.io.synthetic import make_scan_sequence
     pairs, truth = [], []
-    for b in range(1, 5):
+    for b in range(1, count + 1):
         scans, poses = make_scan_sequence(
             np.random.default_rng(1000 + b), n_scans=2,
             n_points=min(cfg.max_points, 100000), **SCAN_SETTINGS)
@@ -1460,16 +1612,21 @@ def scan_pairs(cfg):
 def check_array_pairs(cfg):
     """(l) ``register_array_pairs`` on 4 distinct synthetic scan pairs at
     the settings of ``bench.py``'s batch pairs: every pair succeeds; pose
-    errors against the scans' ground truth are printed.  Returns the run's
-    launches."""
+    errors against the scans' ground truth are printed; the pairs run in
+    one lockstep batch (K2 4 launches, K3 one a lockstep round over 4 x 2 x
+    6 lanes).  Returns the run's launches."""
     from plade_tpu_torch.dist.mesh import register_array_pairs
+    from plade_tpu_torch.extract import ransac
     from plade_tpu_torch.kernels import nn
     pairs, truth = scan_pairs(cfg)
     reset_counts()
     t0 = time.perf_counter()
-    outs = register_array_pairs(pairs, cfg, seed=0)
+    with recorded_calls(ransac, "close_and_label_lanes",
+                        lambda a, out: a[0].shape[0]) as lanes:
+        outs = register_array_pairs(pairs, cfg, seed=0)
     wall = time.perf_counter() - t0
     launches = dict(nn.LAUNCHES)
+    check_lockstep("[l]", launches, lanes, len(pairs), cfg)
     for i, (o, gt) in enumerate(zip(outs, truth)):
         rot, trans = pose_errors(o.transform, gt[:3, :3], gt[:3, 3])
         print(f"[l] pair {i}: {pairs[i][0].shape[0]} / "
@@ -1485,6 +1642,23 @@ def check_array_pairs(cfg):
     if min(launches.values()) < 1:
         fail(f"[l] a kernel was not launched: {launches}")
     return launches
+
+
+def check_lockstep(tag, launches, lanes, pairs: int, cfg):
+    """The launches of one lockstep batch of ``pairs`` pairs: K2 once a
+    pass of the rescore ICP (``rescore_icp_iters`` + 1) and K3 once a
+    lockstep round over every cloud's lanes (2 x pairs x
+    ``ransac_exact_lanes``); fails otherwise."""
+    L = 2 * pairs * cfg.ransac_exact_lanes
+    k2 = cfg.rescore_icp_iters + 1
+    print(f"{tag} one lockstep batch of {pairs} pairs: K2 "
+          f"{launches['nearest_neighbor']} launches (expected {k2}), K1 "
+          f"{launches['oriented_min_dist_sq']}, K3 {len(lanes)} over lanes "
+          f"{sorted(set(lanes))} (expected L = {L})", flush=True)
+    if launches["nearest_neighbor"] != k2 or set(lanes) != {L} \
+            or launches["close_and_label_lanes"] != len(lanes):
+        fail(f"{tag} not one lockstep batch: launches {launches}, K3 lanes "
+             f"{lanes}")
 
 
 def result_matrices(path: str, count: int):
@@ -1636,12 +1810,18 @@ def check_cli(scene, files_T, cfg):
                 names.append(str(tmp / f"pair{i}_{side}.ply"))
                 write_ply(names[-1], p, n)
         pairs_file.write_text("\n".join(names) + "\n")
+        from plade_tpu_torch.extract import ransac
         for path, extra in (("cli_batch", []),
                             ("cli_device_batch", ["--device-batch"])):
             out = str(tmp / f"{path}.txt")
-            paths[path], wall = run_cli(f"[m] {path}",
-                                        [str(pairs_file), out] + extra,
-                                        problems)
+            with recorded_calls(ransac, "close_and_label_lanes",
+                                lambda a, out: a[0].shape[0]) as lanes:
+                paths[path], wall = run_cli(f"[m] {path}",
+                                            [str(pairs_file), out] + extra,
+                                            problems)
+            if extra:
+                check_lockstep("[m] --device-batch", paths[path], lanes,
+                               len(pairs), cfg)
             errs = []
             for k, ((_, _, T), gt) in enumerate(
                     zip(result_matrices(out, len(pairs)), truth)):
@@ -1684,6 +1864,7 @@ def check_scene(cfg):
     ``posegraph.synchronize`` on the run's edges on the card and on the CPU
     within 1e-4.  Returns the launches by path."""
     from plade_tpu_torch.dist import posegraph
+    from plade_tpu_torch.extract import ransac
     from plade_tpu_torch.io.synthetic import make_scan_sequence, write_scene
     n = 5
     scans, poses = make_scan_sequence(
@@ -1698,11 +1879,16 @@ def check_scene(cfg):
                             ("cli_scene_sequential", [])):
             out = str(Path(tmp) / f"{path}.txt")
             with recorded_calls(posegraph, "from_edges",
-                                lambda a, out: a[0]) as graphs:
+                                lambda a, out: a[0]) as graphs, \
+                    recorded_calls(ransac, "close_and_label_lanes",
+                                   lambda a, out: a[0].shape[0]) as lanes:
                 paths[path], wall = run_cli(
                     f"[n] {path}", ["scene", d, out, "--loop-stride", "2"]
                     + extra, problems)
             edges, = graphs
+            if extra:
+                check_lockstep("[n] scene --device-batch", paths[path],
+                               lanes, 7, cfg)
             lines = Path(out).read_text().splitlines()
             errs = []
             for k in range(n):
@@ -1741,6 +1927,178 @@ def check_scene(cfg):
     if problems:
         fail("; ".join(problems))
     return paths
+
+
+def check_batch(scene, cfg, per_clock: float, old_k3, step_run):
+    """(o) ``register_batch`` on ``bench.py``'s 8 pairs (pair 0 the room of
+    (c), pairs 1-7 the scan pairs of rng 1000 + b), all padded to one size:
+    at B = 1 (pair after pair, the single-pair step), 2, 4 and 8, one
+    warm-up and three timed runs each, each fenced by a host read of the
+    results; the peak memory of each B's timed runs.  The first timed B = 8
+    run counts launches (K2 and K1 shapes, K3 grids and lanes) and host
+    syncs; every pair within the pose limits at B = 8, within 1e-4 of its
+    B = 1 transform with the same success.  Then one profiled B = 8 batch
+    (stage table, kernels a batch), K3 on the counted run's grids as in
+    (f), and one ``enable_icp`` batch (K2 at 8 x 16384 x 16384).  Returns
+    (the counted run's launches, launches per (kernel, shape), the K3
+    row)."""
+    from plade_tpu_torch import pipeline
+    from plade_tpu_torch.core import types as ptypes
+    from plade_tpu_torch.dist import mesh
+    from plade_tpu_torch.extract import ransac
+    from plade_tpu_torch.kernels import cc, nn
+    from plade_tpu_torch.refine import icp as icp_mod
+    from plade_tpu_torch.verify import overlap as overlap_mod
+    tp, tn, sp, sn, R, t = scene
+    scans, truth = scan_pairs(cfg, BATCH - 1)
+    pairs = [(tp, tn, sp, sn)] + scans
+    truth = [(R, t)] + [(T[:3, :3], T[:3, 3]) for T in truth]
+    pad = pipeline._pad_size(max(max(p[0].shape[0], p[2].shape[0])
+                                 for p in pairs), maximum=cfg.max_points)
+    tgt = mesh.stack_clouds([ptypes.pad_cloud(p[0], p[1], pad, "cuda")
+                             for p in pairs])
+    src = mesh.stack_clouds([ptypes.pad_cloud(p[2], p[3], pad, "cuda")
+                             for p in pairs])
+    seeds = list(range(BATCH))
+    card = gpu_info()
+
+    def run(B, cfg_run=cfg):
+        """All 8 pairs, B at a time (B = 1: the single-pair step); the
+        transforms and successes read on the host."""
+        step = pipeline.register_pair_device(cfg_run, pad)
+        if B == 1:
+            outs = [ptypes.RegistrationResult(*(x[None] for x in step(
+                ptypes.Cloud(*(x[i] for x in tgt)),
+                ptypes.Cloud(*(x[i] for x in src)), seeds[i])))
+                for i in range(BATCH)]
+        else:
+            outs = [mesh.register_batch(
+                ptypes.Cloud(*(x[s:s + B] for x in tgt)),
+                ptypes.Cloud(*(x[s:s + B] for x in src)), seeds[s:s + B],
+                cfg_run) for s in range(0, BATCH, B)]
+        res = ptypes.RegistrationResult(*(torch.cat(f) for f in zip(*outs)))
+        return res.transform.cpu().numpy(), res.success.tolist(), res
+
+    walls, peaks, syncs, results = {}, {}, {}, {}
+    for B in (1, 2, 4, BATCH):
+        run(B)                                             # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        walls[B] = []
+        for k in range(3):
+            ptypes.HOST_SYNCS["count"] = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = run(B)
+            walls[B].append(time.perf_counter() - t0)
+            if k == 0:
+                syncs[B] = ptypes.HOST_SYNCS["count"]
+                results[B] = out
+        peaks[B] = torch.cuda.max_memory_allocated()
+        print(f"[o] B = {B}: wall per pair (median of 3) "
+              f"{statistics.median(walls[B]) * 1e3 / BATCH:.1f} ms, runs "
+              f"{[round(w * 1e3, 1) for w in walls[B]]} ms for {BATCH} pairs"
+              f"; host syncs {syncs[B]} ({syncs[B] * B / BATCH:g} a batch); "
+              f"peak memory {peaks[B] / 2**20:.1f} MiB; {card}", flush=True)
+
+    # one more B = 8 run, untimed, with every count at 0 and the kernels'
+    # shapes and K3's grids recorded
+    reset_counts()
+    with recorded_calls(icp_mod, "nearest_neighbor",
+                        lambda a, out: tuple(a[0].shape[:-1])
+                        + (a[1].shape[-2],)) as k2_shapes, \
+            recorded_calls(overlap_mod, "oriented_min_dist_sq",
+                           lambda a, out: tuple(a[0].shape[:-1])
+                           + (a[2].shape[-2],)) as k1_shapes, \
+            recorded_calls(ransac, "close_and_label_lanes",
+                           lambda a, out: (a[0].clone(), a[1])) as grids, \
+            recorded_extractions(ransac) as seen:
+        run(BATCH)
+        torch.cuda.synchronize()
+    launches = dict(nn.LAUNCHES)
+    problems = []
+    T8, ok8, res8 = results[BATCH]
+    T1, ok1, _ = results[1]
+    for i, ((Rg, tg), name) in enumerate(zip(truth, ["room"] + [
+            f"scan pair {b}" for b in range(1, BATCH)])):
+        dT = float(np.abs(T8[i] - T1[i]).max())
+        rot, trans = check_pose(f"[o] pair {i} ({name}), B = {BATCH}:", T8[i],
+                                Rg, tg, problems)
+        print(f"[o] pair {i}: success {ok8[i]} (B = 1: {ok1[i]}), score "
+              f"{float(res8.score[i]):.6f}, matched planes "
+              f"{int(res8.matched_planes[i])}, counters "
+              f"{int(res8.match_saturated[i])}/{int(res8.pen_overflow[i])}/"
+              f"{int(res8.cluster_truncated[i])}; transform within {dT:.3e} "
+              f"of its B = 1 result", flush=True)
+        if dT >= 1e-4 or ok8[i] != ok1[i] or not ok8[i]:
+            problems.append(f"[o] pair {i}: success {ok8[i]} / {ok1[i]}, "
+                            f"transform differs from B = 1 by {dT}")
+    (_, stats), = seen
+    rounds = stats.rounds.tolist()
+    lanes = sorted({int(o.shape[0]) for o, _ in grids})
+    L = 2 * BATCH * cfg.ransac_exact_lanes
+    by_shape = {}
+    for name, shapes in (("nearest_neighbor", k2_shapes),
+                         ("oriented_min_dist_sq", k1_shapes)):
+        for shape in shapes:
+            key = (name, "x".join(map(str, shape)))
+            by_shape[key] = by_shape.get(key, 0) + 1
+    print(f"[o] B = {BATCH}, one batch: launches {launches}; K2 shapes "
+          f"(P, Q, T) {k2_shapes}; K1 shapes {k1_shapes}; K3 "
+          f"{len(grids)} launches over lanes {lanes}, lockstep rounds of the "
+          f"{2 * BATCH} clouds {rounds}; host syncs {syncs[BATCH]} (the step "
+          f"at B = 1 in (i): {step_run['syncs']} a pair)", flush=True)
+    if k2_shapes != [K2_BATCH_SHAPES[0]] * (cfg.rescore_icp_iters + 1):
+        problems.append(f"[o] K2 launches {k2_shapes}")
+    if not k1_shapes or {s[0] for s in k1_shapes} != {BATCH} \
+            or K1_BATCH_SHAPES[1] not in k1_shapes:
+        problems.append(f"[o] K1 launches {k1_shapes}")
+    if lanes != [L] or len(grids) != max(rounds) \
+            or launches["close_and_label_lanes"] != len(grids):
+        problems.append(f"[o] K3 {len(grids)} launches over lanes {lanes}, "
+                        f"not one a lockstep round ({max(rounds)}) at L = {L}")
+    if min(launches.values()) < 1:
+        problems.append(f"[o] a kernel was not launched: {launches}")
+    if problems:
+        fail("; ".join(problems))
+    walls_pp = {B: statistics.median(w) * 1e3 / BATCH
+                for B, w in walls.items()}
+    print(f"[o] wall per pair, ms: "
+          f"{ {B: round(w, 1) for B, w in walls_pp.items()} }; B = 1 / B = "
+          f"{BATCH}: {walls_pp[1] / walls_pp[BATCH]:.2f}x; the step alone in "
+          f"(i) (room pair): {step_run['wall'] * 1e3:.1f} ms; peak memory, "
+          f"MiB: { {B: round(m / 2**20, 1) for B, m in peaks.items()} }; "
+          f"{card}", flush=True)
+    table = profile_stages(lambda: run(BATCH), tag="[o]")
+    print(f"[o] kernels a batch of {BATCH}: {table['(total)'][2]} (a pair "
+          f"in (i): {step_run['kernels']}); host syncs a batch "
+          f"{syncs[BATCH]}", flush=True)
+    k3_row = k3_main_path(cc, grids, per_clock, old_k3, tag="[o]")
+    k3_row["path"] = "register_batch"
+    k3_row["launches"] = len(grids)
+
+    # the final ICP of a batch: K2 icp_iters + 1 times over all pairs
+    cfg_icp = dataclasses.replace(cfg, enable_icp=True)
+    reset_counts()
+    with recorded_calls(icp_mod, "nearest_neighbor",
+                        lambda a, out: tuple(a[0].shape[:-1])
+                        + (a[1].shape[-2],)) as icp_shapes:
+        T_icp, ok_icp, _ = run(BATCH, cfg_icp)
+    icp_launches = dict(nn.LAUNCHES)
+    at_shape = sum(s == K2_BATCH_SHAPES[1] for s in icp_shapes)
+    by_shape[("nearest_neighbor", "x".join(map(str, K2_BATCH_SHAPES[1])))] \
+        = at_shape
+    print(f"[o] enable_icp batch of {BATCH}: launches {icp_launches}, K2 at "
+          f"{K2_BATCH_SHAPES[1]}: {at_shape} (icp_iters {cfg.icp_iters} + 1)"
+          f", shapes {sorted(set(icp_shapes))}", flush=True)
+    for i, (Rg, tg) in enumerate(truth):
+        check_pose(f"[o] enable_icp pair {i}:", T_icp[i], Rg, tg, problems)
+    if at_shape != cfg.icp_iters + 1 or not all(ok_icp):
+        problems.append(f"[o] enable_icp batch: K2 {icp_shapes}, success "
+                        f"{ok_icp}")
+    if problems:
+        fail("; ".join(problems))
+    return launches, by_shape, k3_row
 
 
 def main():
@@ -1786,6 +2144,7 @@ def main():
         compare_parent(nn, nn_dll, keys, rows, inputs)
         old_k3 = parent_k3(cc_dll)
     del inputs
+    rows += check_batched_kernels(nn)
     per_clock = cell_ops_per_clock()
     rows += check_cc(cc, per_clock, old_k3)
 
@@ -1890,7 +2249,16 @@ def main():
     # (m) the command line, (n) scene mode
     paths.update(check_cli(scene, clouds_run["files_T"], cfg))
     paths.update(check_scene(cfg))
-    paths.update({"register_pair_device": step_run["launches"],
+    # (o) the bench's 8 pairs in lockstep
+    batch_launches, batch_by_shape, k3_row = check_batch(
+        scene, cfg, per_clock, old_k3, step_run)
+    rows.append(k3_row)
+    for row in rows:
+        if row.get("path") == "register_batch" and "launches" not in row:
+            row["launches"] = batch_by_shape.get(
+                (row["name"], row["shape"]), 0)
+    paths.update({"register_batch": batch_launches,
+                  "register_pair_device": step_run["launches"],
                   "register_clouds": clouds_run["launches"],
                   "register_with_planes": planes_launches})
     for row in rows:
@@ -1900,7 +2268,9 @@ def main():
         path = row.setdefault("path", "register_pair_device")
         row["launches_by_path"] = {p: counts.get(row["name"], 0)
                                    for p, counts in paths.items()}
-        if path is None:
+        if path == "register_batch":
+            pass                # (o)'s launches at this row's shape
+        elif path is None:
             # measured on chip_smoke's own grids, on no main path (K3' is
             # the L = 1 entry the reference's tests call; the paths run the
             # same kernel through close_and_label_lanes)

@@ -11,7 +11,8 @@ Extensions over the reference (flagged, defaults match reference behavior):
                  reproducibility)
   --device-batch run batch pairs through the device step
                  (dist/mesh.register_array_pairs) instead of the sequential
-                 host loop
+                 host loop: 8 pairs at a time (its ``batch_pairs``) in
+                 lockstep, each kernel launched once for all of them
   --resume       batch mode: record per-pair results in a sidecar state
                  file and skip already-completed pairs on restart
                  (checkpoint/resume — absent from the reference); the state
@@ -83,7 +84,9 @@ def main(argv=None) -> int:
                         help="enable point-to-plane ICP refinement")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--device-batch", action="store_true",
-                        help="batch mode: run pairs through the device step")
+                        help="batch mode: run pairs through the device "
+                             "step, 8 at a time in lockstep "
+                             "(register_array_pairs' batch_pairs)")
     parser.add_argument("--resume", action="store_true",
                         help="batch mode: checkpoint per-pair results and "
                              "skip completed pairs on restart")
@@ -322,7 +325,8 @@ def _run_batch(pairs_file, result_file, cfg, seed, device_batch,
 
 
 def _register_batch_device(pairs, cfg, seed, device):
-    """All pairs through the device step (``register_array_pairs``)."""
+    """All pairs through the device step (``register_array_pairs``, its
+    default ``batch_pairs`` in lockstep)."""
     from ..dist.mesh import register_array_pairs
     from ..io import native
     from ..io.ply import read_ply

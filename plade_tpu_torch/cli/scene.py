@@ -38,8 +38,8 @@ def run_scene(scene_dir: str, out_file: str, cfg, seed: int = 0,
     edges = []
     n_fail = 0
     if device_batch:
-        # all pairwise registrations through the device step (scans loaded
-        # once)
+        # all pairwise registrations through the device step, 8 pairs at a
+        # time in lockstep (scans loaded once)
         clouds = {}
         for i, j in pairs:
             for k in (i, j):

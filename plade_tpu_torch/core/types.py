@@ -2,7 +2,9 @@
 tensors), mirroring ``plade_tpu/core/types.py``.
 
 Every container is a ``(data, mask/count)`` pair padded to a static size,
-with the same conventions as the reference package: padded points sit at
+with the same conventions as the reference package (the shapes below are
+one pair's; the batched pipeline adds a leading axis of pairs or clouds to
+every field, and ``mask`` follows it): padded points sit at
 ``BIG``, counts are 0-d int32 tensors on the data's device, and ``mask`` is
 ``arange(n) < count``.
 """
@@ -29,7 +31,9 @@ def host_value(t: torch.Tensor):
 
 
 def _mask(n: int, count: torch.Tensor) -> torch.Tensor:
-    return torch.arange(n, device=count.device) < count
+    """``arange(n) < count`` along a last axis, for ``count`` of any leading
+    shape (a leading axis of pairs or clouds)."""
+    return torch.arange(n, device=count.device) < count[..., None]
 
 
 class Cloud(NamedTuple):
@@ -40,7 +44,7 @@ class Cloud(NamedTuple):
 
     @property
     def mask(self) -> torch.Tensor:
-        return _mask(self.points.shape[0], self.count)
+        return _mask(self.points.shape[-2], self.count)
 
 
 class PlaneSet(NamedTuple):
@@ -54,7 +58,7 @@ class PlaneSet(NamedTuple):
 
     @property
     def mask(self) -> torch.Tensor:
-        return _mask(self.coeffs.shape[0], self.count)
+        return _mask(self.coeffs.shape[-2], self.count)
 
 
 class PlaneGeometry(NamedTuple):
@@ -76,7 +80,7 @@ class LineSet(NamedTuple):
 
     @property
     def mask(self) -> torch.Tensor:
-        return _mask(self.direction.shape[0], self.count)
+        return _mask(self.direction.shape[-2], self.count)
 
 
 class PairDescriptors(NamedTuple):
@@ -90,7 +94,7 @@ class PairDescriptors(NamedTuple):
 
     @property
     def mask(self) -> torch.Tensor:
-        return _mask(self.desc.shape[0], self.count)
+        return _mask(self.desc.shape[-2], self.count)
 
 
 class RegistrationResult(NamedTuple):
@@ -130,8 +134,10 @@ def pad_cloud(points, normals, size: int, device) -> Cloud:
 
 
 def se3_matrix(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
-    """Assemble a 4x4 homogeneous transform from R (3,3) and t (3,)."""
-    top = torch.cat([R, t[:, None]], dim=1)
-    bottom = torch.zeros((1, 4), dtype=top.dtype, device=top.device)
-    bottom[0, 3] = 1.0
-    return torch.cat([top, bottom], dim=0)
+    """Assemble 4x4 homogeneous transforms from R (..., 3, 3) and t
+    (..., 3)."""
+    top = torch.cat([R, t[..., None]], dim=-1)
+    bottom = torch.zeros(top.shape[:-2] + (1, 4), dtype=top.dtype,
+                         device=top.device)
+    bottom[..., 0, 3] = 1.0
+    return torch.cat([top, bottom], dim=-2)

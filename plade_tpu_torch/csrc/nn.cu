@@ -11,6 +11,12 @@
 //     squared distance to the references whose normal agrees
 //     (qn . rn >= normal_cos), +inf when none does.
 //
+// Both take a leading axis of P pairs: pair p's queries (Q, 3) scan only
+// pair p's references (T, 3), one launch for all pairs (blockIdx.z is the
+// pair), so a batch of pairs fills the card by its pairs before the
+// references are split.  K2's argmin indexes the pair's own references.
+// P = 1 is the single-pair launch, bit for bit.
+//
 // What bounds them on the card: both are an all-pairs pass over Q x T
 // pairs whose inputs and outputs are a few MB, so device memory is not the
 // limit.  Counted as floating-point work, K2 is 8 FLOP a pair (3
@@ -42,7 +48,8 @@
 //   the next tile (coalesced, flat over the (n, 3) floats) into the other
 //   buffer before scanning the current one, and waits for it after the
 //   scan; one barrier a tile, and no register held for the copy.
-// - When the queries alone give fewer than kMinBlocksPerSM blocks per SM,
+// - When the queries of all pairs give fewer than kMinBlocksPerSM blocks per
+//   SM,
 //   the references are split into slices of whole tiles over blockIdx.y,
 //   choosing among the splits that fill the card the one whose busiest SM
 //   scans the fewest tiles.  Each slice scans its references in ascending
@@ -123,7 +130,8 @@ __device__ __forceinline__ void staged() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-// Query k of this thread when each thread holds R queries, or -1 past Q.
+// Query k of this thread (within its pair) when each thread holds R
+// queries, or -1 past Q.
 template <int R>
 __device__ __forceinline__ int query_index(int k, int Q) {
   const int qi = blockIdx.x * kThreads * R + k * kThreads + threadIdx.x;
@@ -135,6 +143,10 @@ __global__ void __launch_bounds__(kThreads)
               unsigned long long* __restrict__ keys, int Q, int T,
               int slice) {
   __shared__ float4 tile[2][kTile];
+  const size_t pair = blockIdx.z;
+  q += 3 * pair * Q;
+  r += 3 * pair * T;
+  keys += pair * Q;
   const int begin = blockIdx.y * slice;
   const int end = min(T, begin + slice);
   constexpr int R = kNNQueries;
@@ -190,9 +202,9 @@ __global__ void __launch_bounds__(kThreads)
 
 __global__ void unpack_keys(const unsigned long long* __restrict__ keys,
                             float* __restrict__ out_d, int* __restrict__ out_i,
-                            int Q) {
+                            int n) {
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= Q) return;
+  if (t >= n) return;
   const unsigned long long key = keys[t];
   const bool none = key == ~0ull;
   out_d[t] = none ? CUDART_INF_F
@@ -207,6 +219,12 @@ __global__ void __launch_bounds__(kThreads)
                     int Q, int T, int slice) {
   __shared__ float4 tp[2][kTile];
   __shared__ float4 tn[2][kTile];
+  const size_t pair = blockIdx.z;
+  q += 3 * pair * Q;
+  qn += 3 * pair * Q;
+  r += 3 * pair * T;
+  rn += 3 * pair * T;
+  out_bits += pair * Q;
   const int begin = blockIdx.y * slice;
   const int end = min(T, begin + slice);
   constexpr int R = kOrientedQueries;
@@ -261,23 +279,25 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-__global__ void fill_inf(float* __restrict__ out, int Q) {
+__global__ void fill_inf(float* __restrict__ out, int n) {
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  if (t < Q) out[t] = CUDART_INF_F;
+  if (t < n) out[t] = CUDART_INF_F;
 }
 
 int blocks_of(int n, int per_block) { return (n + per_block - 1) / per_block; }
 
-// References per slice (whole tiles) for Q queries, `block_queries` a
-// block, against T references: among the splits that give at least
+// References per slice (whole tiles) for P pairs of Q queries,
+// `block_queries` a block, against T references: among the splits that give
+// at least
 // kMinBlocksPerSM blocks per SM (or the finest split, when none does), the
 // one whose busiest SM scans the fewest tiles; ties go to fewer slices
 // (fewer atomics).
-int slice_refs(int Q, int T, int block_queries) {
+int slice_refs(int P, int Q, int T, int block_queries) {
   int dev = 0, sms = 132;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  const long long blocks_x = blocks_of(Q, block_queries);
+  const long long blocks_x =
+      static_cast<long long>(P) * blocks_of(Q, block_queries);
   const int tiles = (T + kTile - 1) / kTile;
   const int s_max = min(tiles, kMaxSlices);
   long long best_cost = LLONG_MAX;
@@ -298,45 +318,58 @@ int slice_refs(int Q, int T, int block_queries) {
 
 }  // namespace
 
+// The interface of the entry points below: 2 = with the leading pair axis
+// (P before Q and T).
+extern "C" int plade_nn_abi() { return 2; }
+
 // Number of reference slices (blockIdx.y) of a K2 launch (oriented == 0)
-// or a K1 launch (oriented != 0) of Q queries against T references.
-extern "C" int plade_nn_ref_slices(int Q, int T, int oriented) {
-  if (Q <= 0 || T <= 0) return 0;
+// or a K1 launch (oriented != 0) of P pairs of Q queries against T
+// references each.
+extern "C" int plade_nn_ref_slices(int P, int Q, int T, int oriented) {
+  if (P <= 0 || Q <= 0 || T <= 0) return 0;
   const int block_queries = oriented ? kOrientedBlockQueries : kNNBlockQueries;
-  return blocks_of(T, slice_refs(Q, T, block_queries));
+  return blocks_of(T, slice_refs(P, Q, T, block_queries));
 }
 
+// q (P, Q, 3), r (P, T, 3) -> out_d, out_i (P, Q); keys: P * Q scratch.
 extern "C" int plade_nearest_neighbor(const float* q, const float* r,
                                       float* out_d, int* out_i,
-                                      unsigned long long* keys, int Q, int T,
-                                      cudaStream_t stream) {
-  if (Q < 0 || T < 0) return static_cast<int>(cudaErrorInvalidValue);
-  if (Q == 0) return static_cast<int>(cudaGetLastError());
-  cudaError_t err = cudaMemsetAsync(keys, 0xff, sizeof(*keys) * Q, stream);
+                                      unsigned long long* keys, int P, int Q,
+                                      int T, cudaStream_t stream) {
+  if (P < 0 || Q < 0 || T < 0 || P > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int n = P * Q;
+  if (n == 0) return static_cast<int>(cudaGetLastError());
+  cudaError_t err = cudaMemsetAsync(keys, 0xff, sizeof(*keys) * n, stream);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (T > 0) {
-    const int slice = slice_refs(Q, T, kNNBlockQueries);
-    const dim3 grid(blocks_of(Q, kNNBlockQueries), blocks_of(T, slice));
+    const int slice = slice_refs(P, Q, T, kNNBlockQueries);
+    const dim3 grid(blocks_of(Q, kNNBlockQueries), blocks_of(T, slice), P);
     nn_kernel<<<grid, kThreads, 0, stream>>>(q, r, keys, Q, T, slice);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  unpack_keys<<<blocks_of(Q, kThreads), kThreads, 0, stream>>>(keys, out_d,
-                                                              out_i, Q);
+  unpack_keys<<<blocks_of(n, kThreads), kThreads, 0, stream>>>(keys, out_d,
+                                                              out_i, n);
   return static_cast<int>(cudaGetLastError());
 }
 
+// q, qn (P, Q, 3), r, rn (P, T, 3) -> out_d (P, Q).
 extern "C" int plade_oriented_min_dist_sq(const float* q, const float* qn,
                                           const float* r, const float* rn,
                                           float normal_cos, float* out_d,
-                                          int Q, int T, cudaStream_t stream) {
-  if (Q < 0 || T < 0) return static_cast<int>(cudaErrorInvalidValue);
-  if (Q == 0) return static_cast<int>(cudaGetLastError());
-  fill_inf<<<blocks_of(Q, kThreads), kThreads, 0, stream>>>(out_d, Q);
+                                          int P, int Q, int T,
+                                          cudaStream_t stream) {
+  if (P < 0 || Q < 0 || T < 0 || P > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int n = P * Q;
+  if (n == 0) return static_cast<int>(cudaGetLastError());
+  fill_inf<<<blocks_of(n, kThreads), kThreads, 0, stream>>>(out_d, n);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || T == 0) return static_cast<int>(err);
-  const int slice = slice_refs(Q, T, kOrientedBlockQueries);
-  const dim3 grid(blocks_of(Q, kOrientedBlockQueries), blocks_of(T, slice));
+  const int slice = slice_refs(P, Q, T, kOrientedBlockQueries);
+  const dim3 grid(blocks_of(Q, kOrientedBlockQueries), blocks_of(T, slice),
+                  P);
   oriented_kernel<<<grid, kThreads, 0, stream>>>(
       q, qn, r, rn, normal_cos, reinterpret_cast<unsigned int*>(out_d), Q, T,
       slice);

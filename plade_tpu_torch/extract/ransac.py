@@ -10,7 +10,7 @@ keeps its semantics operation for operation; where PyTorch differs:
 * The extractor carries a leading axis of clouds, which it extracts in
   lockstep: every operation of a round launches once for all of them, as
   the reference's ``jax.vmap`` of its extractor computes it (the device
-  step extracts target and source together).  One cloud is the call with
+  step extracts the targets and sources of all its pairs together).  One cloud is the call with
   one cloud on that axis.
 * ``lax.while_loop`` is a Python loop.  The clouds' ``done`` flags are read
   on the host once per round (``core.types.host_value``), and nothing else
@@ -47,6 +47,7 @@ from typing import Callable, NamedTuple
 import torch
 
 from ..core.config import PladeConfig
+from ..core.ops import drop, lift, take
 from ..core.types import PlaneSet, host_value
 from ..geometry.eig3 import smallest_eigvec3
 from ..geometry.transforms import cross
@@ -840,31 +841,36 @@ def _keep_largest(planes: PlaneSet, keep: torch.Tensor,
     """The planes of ``keep``, at most ``cfg.max_planes`` (the largest by
     support, greedy order restored), padded to ``cfg.max_planes`` rows, with
     ``point_plane`` renumbered to them (-1 for points of a dropped
-    plane)."""
+    plane).  Over a leading axis of clouds when ``planes`` has one."""
+    single = planes.coeffs.dim() == 2
+    if single:
+        planes, keep = lift((planes, keep))
     coeffs0 = planes.coeffs
     dev = coeffs0.device
-    P0 = coeffs0.shape[0]
+    B, P0 = coeffs0.shape[:2]
     P = cfg.max_planes
     sizes = planes.sizes
     order = torch.sort(-torch.where(keep, sizes, -1), stable=True).indices
-    kept = order[:P]
-    kept_valid = keep[kept]
+    kept = order[:, :P]
+    kept_valid = torch.gather(keep, 1, kept)
     kk = torch.sort(torch.where(kept_valid, kept, P0)).values
-    if kk.shape[0] < P:
-        kk = torch.cat([kk, torch.full((P - kk.shape[0],), P0,
-                                       dtype=kk.dtype, device=dev)])
+    if kk.shape[1] < P:
+        kk = torch.cat([kk, torch.full((B, P - kk.shape[1]), P0,
+                                       dtype=kk.dtype, device=dev)], dim=1)
     new_valid = kk < P0
     kk_safe = torch.clamp(kk, max=P0 - 1)
-    coeffs = torch.where(new_valid[:, None], coeffs0[kk_safe], 0.0)
-    out_sizes = torch.where(new_valid, sizes[kk_safe], 0)
-    remap = torch.full((P0 + 1,), -1, dtype=_I32, device=dev)
-    remap[torch.where(new_valid, kk_safe, P0)] = torch.arange(
-        P, dtype=_I32, device=dev)
+    coeffs = torch.where(new_valid[..., None], take(coeffs0, kk_safe), 0.0)
+    out_sizes = torch.where(new_valid, torch.gather(sizes, 1, kk_safe), 0)
+    remap = torch.full((B, P0 + 1), -1, dtype=_I32, device=dev)
+    remap.scatter_(1, torch.where(new_valid, kk_safe, P0), torch.arange(
+        P, dtype=_I32, device=dev).expand(B, P))
     pp = planes.point_plane
-    new_pp = torch.where(pp >= 0, remap[torch.clamp(pp, 0, P0).long()], -1)
-    return PlaneSet(coeffs=coeffs, sizes=out_sizes.to(_I32),
-                    count=torch.sum(new_valid, dtype=_I32),
-                    point_plane=new_pp.to(_I32))
+    new_pp = torch.where(pp >= 0, torch.gather(
+        remap, 1, torch.clamp(pp, 0, P0).long()), -1)
+    out = PlaneSet(coeffs=coeffs, sizes=out_sizes.to(_I32),
+                   count=torch.sum(new_valid, dim=1, dtype=_I32),
+                   point_plane=new_pp.to(_I32))
+    return drop(out) if single else out
 
 
 def select_planes_device(planes: PlaneSet, cfg: PladeConfig) -> PlaneSet:
@@ -873,16 +879,18 @@ def select_planes_device(planes: PlaneSet, cfg: PladeConfig) -> PlaneSet:
     largest threshold of the halving schedule that leaves >= min_planes
     planes, then at most max_planes (the largest by support, greedy order
     kept).  It picks the planes of the reference's host-side
-    ``select_planes`` and of its ``select_planes_device``."""
+    ``select_planes`` and of its ``select_planes_device``.  One cloud's
+    planes, or a leading axis of clouds, selected together."""
     dev = planes.coeffs.device
     sizes = planes.sizes
     valid = planes.mask
     th = _thresholds_on(cfg, dev)                                   # (T,)
-    cnt = torch.sum((sizes[None, :] >= th[:, None]) & valid[None, :], dim=1)
+    cnt = torch.sum((sizes[..., None, :] >= th[:, None])
+                    & valid[..., None, :], dim=-1)             # (..., T)
     okth = cnt >= cfg.min_planes
     # a 1-element index: indexing with a 0-d tensor reads it on the host
-    chosen = torch.where(torch.any(okth),
-                         th[_first_true(okth).reshape(1)][0],
+    chosen = torch.where(torch.any(okth, dim=-1, keepdim=True),
+                         th[_first_true(okth)[..., None]],
                          cfg.ransac_min_allowed_support)
     return _keep_largest(planes, valid & (sizes >= chosen), cfg)
 

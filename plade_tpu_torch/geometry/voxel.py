@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import torch
 
-from ..core.ops import lexsort
+from ..core.ops import drop, flat_rows, lexsort, lift, per_pair, take
 from ..core.types import BIG, Cloud
 
 # spatial-hash primes of the reference (Teschner et al. 2003) and its
@@ -43,19 +43,27 @@ def _cell_hash2(ix, iy, iz):
 
 
 def _cells(points, pmin, leaf) -> torch.Tensor:
-    """(N, 3) int64 cell coordinates; values beyond int32 saturate (the
+    """(..., N, 3) int64 cell coordinates; values beyond int32 saturate (the
     reference's float -> int32 conversion; only padded rows get there)."""
     f = torch.floor((points - pmin) / leaf)
     return torch.clamp(f, _I32_MIN, _I32_MAX).to(torch.int64)
 
 
 def _changed(*keys) -> torch.Tensor:
-    diff = torch.zeros(keys[0].shape[0] - 1, dtype=torch.bool,
-                       device=keys[0].device)
+    """Per position along the last axis: the first, or any key differs
+    from the previous position's."""
+    k0 = keys[0]
+    diff = torch.zeros(k0.shape[:-1] + (k0.shape[-1] - 1,), dtype=torch.bool,
+                       device=k0.device)
     for k in keys:
-        diff |= k[1:] != k[:-1]
-    return torch.cat([torch.ones(1, dtype=torch.bool, device=diff.device),
-                      diff])
+        diff |= k[..., 1:] != k[..., :-1]
+    return torch.cat([torch.ones(k0.shape[:-1] + (1,), dtype=torch.bool,
+                                 device=diff.device), diff], dim=-1)
+
+
+def _leaf(leaf, B: int, device) -> torch.Tensor:
+    """The per-cloud voxel size as (B, 1, 1), broadcasting over (B, N, 3)."""
+    return per_pair(leaf, B, device)[:, None, None]
 
 
 def voxel_downsample(points: torch.Tensor, mask: torch.Tensor, leaf,
@@ -63,47 +71,60 @@ def voxel_downsample(points: torch.Tensor, mask: torch.Tensor, leaf,
                      ) -> Cloud:
     """Voxel-grid centroid downsample of the masked points, padded to
     ``max_out``; with ``normals``, each voxel carries the normalized mean
-    normal of its points."""
-    n = points.shape[0]
+    normal of its points.  points (N, 3), mask (N,), or a leading axis of
+    B clouds ((B, N, 3), (B, N), ``leaf`` a number or (B,))."""
+    single = points.dim() == 2
+    if single:
+        points, mask, normals = lift((points, mask, normals))
+    B, n = mask.shape
     dev = points.device
-    pmin = torch.amin(torch.where(mask[:, None], points, 1e30), dim=0)
-    ijk = _cells(points, pmin, leaf)
+    pmin = torch.amin(torch.where(mask[..., None], points, 1e30), dim=1)
+    ijk = _cells(points, pmin[:, None, :], _leaf(leaf, B, dev))
     arange = torch.arange(n, device=dev)
-    ix, iy, iz = ijk[:, 0], ijk[:, 1], ijk[:, 2]
+    ix, iy, iz = ijk[..., 0], ijk[..., 1], ijk[..., 2]
     h = _cell_hash(ix, iy, iz)
     h2 = _cell_hash2(ix, iy, iz)
     key1 = torch.where(mask, h & 0x7FFFFFFF, 0x7FFFFFFF)
     key2 = torch.where(mask, h2, arange)
     order = lexsort((key2, key1))
-    sm = mask[order]
-    changed = _changed(key1[order], key2[order], ix[order], iy[order],
-                       iz[order])
-    seg = torch.cumsum(changed.to(torch.int64), 0) - 1
-    count = torch.where(sm.any(), torch.amax(torch.where(sm, seg, -1)) + 1, 0)
-    seg_clip = torch.where(seg < max_out, seg, max_out)
-    sp = points[order]
-    sums = torch.zeros((max_out + 1, 3), dtype=torch.float32, device=dev) \
-        .index_add_(0, seg_clip, torch.where(sm[:, None], sp, 0.0))
-    cnts = torch.zeros((max_out + 1,), dtype=torch.float32, device=dev) \
-        .index_add_(0, seg_clip, sm.to(torch.float32))
-    centroids = sums[:max_out] / torch.clamp(cnts[:max_out, None], min=1.0)
+    sm = torch.gather(mask, 1, order)
+    changed = _changed(*(torch.gather(k, 1, order)
+                         for k in (key1, key2, ix, iy, iz)))
+    seg = torch.cumsum(changed.to(torch.int64), -1) - 1
+    count = torch.where(sm.any(-1),
+                        torch.amax(torch.where(sm, seg, -1), dim=-1) + 1, 0)
+    seg_clip = flat_rows(torch.where(seg < max_out, seg, max_out),
+                         max_out + 1)
+    sp = take(points, order)
+    sums = torch.zeros((B * (max_out + 1), 3), dtype=torch.float32,
+                       device=dev).index_add_(
+        0, seg_clip, torch.where(sm[..., None], sp, 0.0).reshape(-1, 3)) \
+        .reshape(B, max_out + 1, 3)
+    cnts = torch.zeros((B * (max_out + 1),), dtype=torch.float32,
+                       device=dev).index_add_(
+        0, seg_clip, sm.to(torch.float32).reshape(-1)) \
+        .reshape(B, max_out + 1)
+    centroids = sums[:, :max_out] / torch.clamp(cnts[:, :max_out, None],
+                                                min=1.0)
     count = torch.clamp(count, max=max_out)
-    valid = torch.arange(max_out, device=dev) < count
-    out_points = torch.where(valid[:, None], centroids, BIG)
+    valid = torch.arange(max_out, device=dev) < count[:, None]
+    out_points = torch.where(valid[..., None], centroids, BIG)
     if normals is not None:
-        sn = normals[order]
-        nsums = torch.zeros((max_out + 1, 3), dtype=torch.float32,
+        sn = take(normals, order)
+        nsums = torch.zeros((B * (max_out + 1), 3), dtype=torch.float32,
                             device=dev).index_add_(
-            0, seg_clip, torch.where(sm[:, None], sn, 0.0))
-        mean_n = nsums[:max_out]
+            0, seg_clip, torch.where(sm[..., None], sn, 0.0).reshape(-1, 3)) \
+            .reshape(B, max_out + 1, 3)
+        mean_n = nsums[:, :max_out]
         mean_n = mean_n / torch.clamp(
             torch.linalg.vector_norm(mean_n, dim=-1, keepdim=True), min=1e-12)
-        out_normals = torch.where(valid[:, None], mean_n, 0.0)
+        out_normals = torch.where(valid[..., None], mean_n, 0.0)
     else:
-        out_normals = torch.zeros((max_out, 3), dtype=torch.float32,
+        out_normals = torch.zeros((B, max_out, 3), dtype=torch.float32,
                                   device=dev)
-    return Cloud(points=out_points, normals=out_normals,
-                 count=count.to(torch.int32))
+    out = Cloud(points=out_points, normals=out_normals,
+                count=count.to(torch.int32))
+    return drop(out) if single else out
 
 
 def voxel_downsample_by_plane(points: torch.Tensor, mask: torch.Tensor,
@@ -111,42 +132,51 @@ def voxel_downsample_by_plane(points: torch.Tensor, mask: torch.Tensor,
                               num_planes: int, max_out: int):
     """Per-plane voxel-grid downsample of all planes in one sorted pass.
 
-    Returns (pts (P, max_out, 3) BIG-padded, counts (P,) int32)."""
-    n = points.shape[0]
+    Returns (pts (P, max_out, 3) BIG-padded, counts (P,) int32), with a
+    leading axis of B clouds when the inputs have one (as
+    :func:`voxel_downsample`)."""
+    single = points.dim() == 2
+    if single:
+        points, mask, point_plane = lift((points, mask, point_plane))
+    B, n = mask.shape
     dev = points.device
+    P = num_planes
     pp = point_plane.to(torch.int64)
-    ok = mask & (pp >= 0) & (pp < num_planes)
-    pmin = torch.amin(torch.where(ok[:, None], points, 1e30), dim=0)
-    ijk = _cells(points, pmin, leaf)
+    ok = mask & (pp >= 0) & (pp < P)
+    pmin = torch.amin(torch.where(ok[..., None], points, 1e30), dim=1)
+    ijk = _cells(points, pmin[:, None, :], _leaf(leaf, B, dev))
     arange = torch.arange(n, device=dev)
-    kp = torch.where(ok, pp, num_planes)
-    kx, ky, kz = ijk[:, 0], ijk[:, 1], ijk[:, 2]
+    kp = torch.where(ok, pp, P)
+    kx, ky, kz = ijk[..., 0], ijk[..., 1], ijk[..., 2]
     kh = torch.where(ok, _cell_hash(kx, ky, kz), arange)
     kh2 = torch.where(ok, _cell_hash2(kx, ky, kz), arange)
     order = lexsort((kh2, kh, kp))
-    sm = ok[order]
-    spl = kp[order]
-    changed = _changed(spl, kh[order], kh2[order], kx[order], ky[order],
-                       kz[order])
-    seg = torch.cumsum(changed.to(torch.int64), 0) - 1
+    sm = torch.gather(ok, 1, order)
+    spl = torch.gather(kp, 1, order)
+    changed = _changed(spl, *(torch.gather(k, 1, order)
+                              for k in (kh, kh2, kx, ky, kz)))
+    seg = torch.cumsum(changed.to(torch.int64), -1) - 1
     # first segment id of each plane -> local cell index within the plane
-    plane_of = torch.clamp(spl, max=num_planes)
-    first_seg = torch.full((num_planes + 1,), n, dtype=torch.int64,
+    plane_of = torch.clamp(spl, max=P)
+    first_seg = torch.full((B, P + 1), n, dtype=torch.int64,
                            device=dev).scatter_reduce_(
-        0, plane_of, seg, reduce="amin", include_self=True)
-    local = seg - first_seg[plane_of]
-    flat = torch.where(sm & (local < max_out),
-                       torch.clamp(spl, max=num_planes - 1) * max_out + local,
-                       num_planes * max_out)
-    sp = points[order]
-    sums = torch.zeros((num_planes * max_out + 1, 3), dtype=torch.float32,
+        1, plane_of, seg, reduce="amin", include_self=True)
+    local = seg - torch.gather(first_seg, 1, plane_of)
+    flat = flat_rows(torch.where(sm & (local < max_out),
+                                 torch.clamp(spl, max=P - 1) * max_out
+                                 + local, P * max_out), P * max_out + 1)
+    sp = take(points, order)
+    sums = torch.zeros((B * (P * max_out + 1), 3), dtype=torch.float32,
                        device=dev).index_add_(
-        0, flat, torch.where(sm[:, None], sp, 0.0))
-    cnts = torch.zeros((num_planes * max_out + 1,), dtype=torch.float32,
-                       device=dev).index_add_(0, flat, sm.to(torch.float32))
-    centroids = (sums[:-1] / torch.clamp(cnts[:-1, None], min=1.0)).reshape(
-        num_planes, max_out, 3)
-    occupied = (cnts[:-1] > 0).reshape(num_planes, max_out)
-    counts = torch.sum(occupied.to(torch.int32), dim=1).to(torch.int32)
+        0, flat, torch.where(sm[..., None], sp, 0.0).reshape(-1, 3)) \
+        .reshape(B, P * max_out + 1, 3)
+    cnts = torch.zeros((B * (P * max_out + 1),), dtype=torch.float32,
+                       device=dev).index_add_(
+        0, flat, sm.to(torch.float32).reshape(-1)) \
+        .reshape(B, P * max_out + 1)
+    centroids = (sums[:, :-1] / torch.clamp(cnts[:, :-1, None], min=1.0)) \
+        .reshape(B, P, max_out, 3)
+    occupied = (cnts[:, :-1] > 0).reshape(B, P, max_out)
+    counts = torch.sum(occupied.to(torch.int32), dim=-1).to(torch.int32)
     pts = torch.where(occupied[..., None], centroids, BIG)
-    return pts, counts
+    return (pts[0], counts[0]) if single else (pts, counts)

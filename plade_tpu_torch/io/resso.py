@@ -144,7 +144,8 @@ def evaluate_scene(scene: RessoScene, cfg=None, pairs=None, seed: int = 0,
     ``device`` (by default CUDA; ``device="cpu"`` for the CPU).
 
     ``device_batch=True`` routes all pairs through the device step
-    (dist/mesh.register_array_pairs) instead of the sequential host loop of
+    (dist/mesh.register_array_pairs, its default ``batch_pairs`` = 8 pairs
+    at a time in lockstep) instead of the sequential host loop of
     ``register_files`` (the reference's per-pair orchestration,
     main.cpp:97-158).
     """

@@ -36,14 +36,16 @@ LAUNCHES = {"nearest_neighbor": 0, "oriented_min_dist_sq": 0,
 
 _P = ctypes.c_void_p
 _SIGNATURES = {
-    # q, r, out_d, out_i, keys (Q 64-bit scratch), Q, T, stream
+    # q, r, out_d, out_i, keys (P x Q 64-bit scratch), P, Q, T, stream
     "plade_nearest_neighbor": (_P, _P, _P, _P, _P, ctypes.c_int,
-                               ctypes.c_int, _P),
-    # q, qn, r, rn, normal_cos, out_d, Q, T, stream
+                               ctypes.c_int, ctypes.c_int, _P),
+    # q, qn, r, rn, normal_cos, out_d, P, Q, T, stream
     "plade_oriented_min_dist_sq": (_P, _P, _P, _P, ctypes.c_float, _P,
-                                   ctypes.c_int, ctypes.c_int, _P),
-    # Q, T, oriented -> reference slices of a K2 (0) or K1 (1) launch
-    "plade_nn_ref_slices": (ctypes.c_int, ctypes.c_int, ctypes.c_int),
+                                   ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                   _P),
+    # P, Q, T, oriented -> reference slices of a K2 (0) or K1 (1) launch
+    "plade_nn_ref_slices": (ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                            ctypes.c_int),
     # occ, out, L, G, iters, stream
     "plade_close_and_label": (_P, _P, ctypes.c_int, ctypes.c_int,
                               ctypes.c_int, _P),

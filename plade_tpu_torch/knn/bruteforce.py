@@ -19,23 +19,36 @@ import torch
 from ..kernels.nn import min_dist_sq, nearest_neighbor  # noqa: F401
 
 
+#: most elements of one (cloud, query, reference) distance block of
+#: ``topk_dist_sq``: 512 queries against 131072 references (one default-size
+#: cloud) a block, and fewer queries a block for several clouds
+_BLOCK_ELEMS = 512 * 131072
+
+
 def _block_dist_sq(q: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
-    """(Q,3) x (B,3) -> (Q,B) squared distances, expansion form."""
+    """(..., Q, 3) x (..., B, 3) -> (..., Q, B) squared distances,
+    expansion form."""
     qq = torch.sum(q * q, dim=-1, keepdim=True)
     rr = torch.sum(r * r, dim=-1)
-    cross = q @ r.T
-    return torch.clamp(qq - 2.0 * cross + rr[None, :], min=0.0)
+    cross = q @ r.transpose(-1, -2)
+    return torch.clamp(qq - 2.0 * cross + rr[..., None, :], min=0.0)
 
 
 def topk_dist_sq(queries: torch.Tensor, refs: torch.Tensor, k: int,
                  block: int = 512) -> torch.Tensor:
-    """(Q, k) smallest squared distances (ascending), exact."""
+    """(..., Q, k) smallest squared distances (ascending), exact, for
+    queries (..., Q, 3) against refs (..., T, 3); at most ``block`` queries a
+    block, fewer when the clouds' distance block would pass
+    ``_BLOCK_ELEMS``."""
+    clouds = queries[..., 0, 0].numel()
+    block = max(1, min(block, _BLOCK_ELEMS // max(1, clouds
+                                                   * refs.shape[-2])))
     out = []
-    for s in range(0, queries.shape[0], block):
-        d = _block_dist_sq(queries[s:s + block], refs)
-        out.append(torch.topk(d, k, dim=1, largest=False, sorted=True)
+    for s in range(0, queries.shape[-2], block):
+        d = _block_dist_sq(queries[..., s:s + block, :], refs)
+        out.append(torch.topk(d, k, dim=-1, largest=False, sorted=True)
                    .values)
-    return torch.cat(out, dim=0)
+    return torch.cat(out, dim=-2)
 
 
 def average_spacing(points: torch.Tensor, mask: torch.Tensor, k: int = 6,
@@ -43,15 +56,18 @@ def average_spacing(points: torch.Tensor, mask: torch.Tensor, k: int = 6,
     """Average point spacing with the reference's quirks
     (util.cpp:1619-1648): strided sampling of <= ``samples`` query points,
     k-NN including the query itself, the k-1 neighbour distances divided
-    by k.  Returns a 0-d float32 tensor."""
-    count = torch.sum(mask.to(torch.int32))
+    by k.  points (N, 3), mask (N,) -> a 0-d float32 tensor; or per cloud
+    (B, N, 3), (B, N) -> (B,)."""
+    count = torch.sum(mask.to(torch.int32), dim=-1, keepdim=True)
     step = torch.clamp(count // samples, min=1)
     idx = torch.arange(samples, dtype=torch.int32, device=points.device) \
         * step
     sample_valid = idx < count
     idx = torch.minimum(idx, torch.clamp(count - 1, min=0))
-    q = points[idx.to(torch.int64)]
-    d = topk_dist_sq(q, points, k)          # d[:, 0] == 0 (self)
-    per_sample = torch.sum(torch.sqrt(d[:, 1:]), dim=1) / k
+    q = torch.gather(points, -2, idx.to(torch.int64)[..., None]
+                     .expand(idx.shape + (3,)))
+    d = topk_dist_sq(q, points, k)          # d[..., 0] == 0 (self)
+    per_sample = torch.sum(torch.sqrt(d[..., 1:]), dim=-1) / k
     w = sample_valid.to(torch.float32)
-    return torch.sum(per_sample * w) / torch.clamp(torch.sum(w), min=1.0)
+    return torch.sum(per_sample * w, dim=-1) / torch.clamp(
+        torch.sum(w, dim=-1), min=1.0)

@@ -153,3 +153,82 @@ def test_cuda_close_and_label_large_grid():
     with pytest.raises(ValueError):
         cc.close_and_label_lanes(torch.zeros((1, 129, 129), dtype=torch.int32,
                                              device="cuda"))
+
+
+def _pair_inputs(P, Q, T, seed=0):
+    """P pairs of ``_inputs`` (each from its own seed, so that every pair
+    holds reference 5's copies in every slice and its own tie rows), each
+    pair shifted by 10 x its index so that no pair's references could
+    serve another's queries."""
+    per = [_inputs(Q, T, seed=seed + p) for p in range(P)]
+    out = []
+    for k in range(4):
+        x = torch.stack([a[k] for a in per])
+        if k in (0, 2):
+            shift = 10.0 * torch.arange(P, device="cuda")[:, None, None]
+            x = torch.where(x < 1e7, x + shift, x)
+        out.append(x.contiguous())
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P", [1, 3, 8])
+@pytest.mark.parametrize("Q,T", [
+    (1000, 777), (131071, 16383), (4096, 1), (1, 16384), (64, 100000)])
+def test_cuda_pair_axis_matches_plain(P, Q, T):
+    """One launch over P pairs, each pair against its own references:
+    bit for bit the batched plain version and the plain version of each
+    pair alone; the lowest tied index wins within the pair's own
+    references, also across the slices of a split."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card)")
+    q, qn, r, rn = _pair_inputs(P, Q, T)
+    before = dict(nn.LAUNCHES)
+    d, i = nn.nearest_neighbor(q, r)
+    o = nn.oriented_min_dist_sq(q, qn, r, rn, 0.5)
+    torch.cuda.synchronize()
+    assert nn.LAUNCHES["nearest_neighbor"] == before["nearest_neighbor"] + 1
+    assert nn.LAUNCHES["oriented_min_dist_sq"] \
+        == before["oriented_min_dist_sq"] + 1
+    assert d.shape == i.shape == o.shape == (P, Q)
+    dp, ip = nn.nearest_neighbor_plain(q, r)
+    op = nn.oriented_min_dist_sq_plain(q, qn, r, rn, 0.5)
+    assert torch.equal(d, dp) and torch.equal(i, ip)
+    assert torch.equal(o, op)
+    for p in range(P):
+        d1, i1 = nn.nearest_neighbor_plain(q[p], r[p])
+        assert torch.equal(d[p], d1) and torch.equal(i[p], i1)
+        assert torch.equal(o[p], nn.oriented_min_dist_sq_plain(
+            q[p], qn[p], r[p], rn[p], 0.5))
+    if T > 20:
+        assert (i[:, 0:4] == 5).all()             # lowest tied index
+    if Q > 3:
+        assert torch.isinf(o[:, 3]).all()          # no gate passes
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Q,T", [(131072, 16384), (1000, 200000), (1, 1)])
+def test_cuda_one_pair_launch_equals_unbatched(Q, T):
+    """A (1, Q, 3) launch is the unbatched launch: the same slices and
+    the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card)")
+    q, qn, r, rn = _inputs(Q, T)
+    assert nn.reference_slices(Q, T, pairs=1) == nn.reference_slices(Q, T)
+    d, i = nn.nearest_neighbor(q, r)
+    db, ib = nn.nearest_neighbor(q[None], r[None])
+    assert torch.equal(db[0], d) and torch.equal(ib[0], i)
+    o = nn.oriented_min_dist_sq(q, qn, r, rn, 0.5)
+    ob = nn.oriented_min_dist_sq(q[None], qn[None], r[None], rn[None], 0.5)
+    assert torch.equal(ob[0], o)
+
+
+@pytest.mark.cuda
+def test_cuda_pairs_fill_the_card_before_the_references_split():
+    """Slices are counted over the blocks of all pairs: 8 pairs of the
+    final ICP's 16384 queries need fewer reference slices than one."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card)")
+    one = nn.reference_slices(16384, 16384)
+    eight = nn.reference_slices(16384, 16384, pairs=8)
+    assert one > 1 and eight < one

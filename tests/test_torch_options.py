@@ -93,8 +93,10 @@ def test_option_matches_reference(scene, option, monkeypatch):
         else True
     poses = []        # the batch of poses of every refine_icp call
     refine = pipeline.refine_icp
+    # R0 is (pairs, poses, 3, 3): register_pair is the one-pair call of the
+    # batched code
     monkeypatch.setattr(pipeline, "refine_icp",
-                        lambda R0, *a: poses.append(R0.shape[0])
+                        lambda R0, *a: poses.append(R0.shape[-3])
                         or refine(R0, *a))
     register_both(scene, dataclasses.replace(CFG, **{option: value}))
     # the rescore refines its modes; the final ICP one pose after it

@@ -2,6 +2,9 @@
 
     python3 chip_smoke.py [--parent DIR]
 
+(``--mesh-worker RANK WORLD ADDR DIR`` runs one rank of phase (p)'s
+2-process world; the script starts those itself.)
+
 Phases, in order; any failed check exits non-zero:
 
 (a) build the CUDA kernels from ``plade_tpu_torch/csrc``;
@@ -83,8 +86,10 @@ Phases, in order; any failed check exits non-zero:
     the trace), once more without ``--profile`` (the start-up cost), then
     ``cli.main`` in this process: single, ``--icp``, batch over the scan
     pairs of (l) sequentially and with ``--device-batch`` (one lockstep
-    batch: K2 4 launches, K3 at L = 48), and ``view`` to PLY and HTML, each
-    within the pose limits with its launches counted;
+    batch: K2 4 launches, K3 at L = 48), ``--device-batch --profile DIR``
+    (the trace holds every ``plade.*`` range of the step and one kernel
+    event for each counted K1/K2/K3 launch), and ``view`` to PLY and HTML,
+    each within the pose limits with its launches counted;
 (n) scene mode: 5 scans (``make_scan_sequence(rng(2000))`` at (l)'s
     settings with step 1.4), ``scene DIR OUT --loop-stride 2`` with
     ``--device-batch`` (its 7 pairs in one lockstep batch: K2 4 launches,
@@ -101,7 +106,24 @@ Phases, in order; any failed check exits non-zero:
     launches with their shapes (K2 4 launches at 8 x 131072 x 16384, K1
     over 8 pairs, K3 once a lockstep round at L = 96), the stage table of
     one profiled B = 8 batch, K3 on that run's grids as in (f), and an
-    ``enable_icp`` batch (K2 21 times at 8 x 16384 x 16384).
+    ``enable_icp`` batch (K2 21 times at 8 x 16384 x 16384);
+(p) pairs over a pairs axis (``dist/mesh.py``, ``dist/multihost.py``) on
+    (o)'s 8 pairs.  Reproducibility: one B = 8 batch twice gives the same
+    bits at every stage's outputs (and, for comparison, where two runs
+    with the float scatter-sums as atomic ``index_add_`` first differ).
+    ``register_array_pairs`` on a mesh of two shards on cuda:0 (4 pairs a
+    shard in lockstep, each in a thread and on a stream of its own; each
+    shard's K1/K2/K3 launches told apart by stream): the bits of (o)'s B =
+    4 batches, every pair within 1e-4 of its B = 1 transform in (o), the
+    wall per pair and peak memory beside (o)'s B = 8 and 4;
+    ``register_batch`` on ``make_mesh()`` (every visible card): the bits of
+    (o)'s ``device="cuda"`` result; a 2-process world on the card (this
+    script started twice with ``--mesh-worker RANK WORLD ADDR DIR``, ranks
+    holding 5 and 3 pairs, ``initialize`` -> ``global_mesh`` ->
+    ``local_batch_to_global`` -> ``register_batch``, each worker under a
+    time limit) whose every rank gathers all 8 results within 1e-4 of
+    (o)'s; ``utils.timing.stage`` around device work no host read waits
+    for: with ``sync=`` it covers the work's CUDA events, without it not.
 
 The last lines are the kernels' JSON line (one row per kernel and main-path
 shape; each row's ``launches`` counts its path's run and
@@ -1688,6 +1710,41 @@ def run_cli(tag, argv, problems):
     return dict(nn.LAUNCHES), wall
 
 
+#: the ``plade.*`` ranges of the device step (``pipeline._stage``)
+STEP_STAGES = ("extract", "spacing", "prepare", "descriptors", "match",
+               "cluster", "consistency", "penetration", "overlap", "rescore")
+#: each kernel's name in a trace, by its launch counter
+KERNEL_NAMES = {"nearest_neighbor": "nn_kernel",
+                "oriented_min_dist_sq": "oriented_kernel",
+                "close_and_label_lanes": "close_label_kernel"}
+
+
+def profiled_batch(tmp: Path, pairs_file: Path, problems):
+    """(m) ``--device-batch --profile DIR`` in this process, the counts at
+    0: the trace holds every ``plade.*`` range of the device step and one
+    kernel event for each counted K1, K2 and K3 launch."""
+    trace = tmp / "trace_batch"
+    launches, wall = run_cli(
+        "[m] --device-batch --profile",
+        [str(pairs_file), str(tmp / "profiled_batch.txt"), "--device-batch",
+         "--profile", str(trace)], problems)
+    events = json.loads((trace / "trace.json").read_text())["traceEvents"]
+    ranges = {e["name"] for e in events if e.get("cat") == "user_annotation"
+              and e["name"].startswith("plade.")}
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    found = {k: sum(name in e for e in kernels)
+             for k, name in KERNEL_NAMES.items()}
+    missing = sorted(f"plade.{s}" for s in STEP_STAGES
+                     if f"plade.{s}" not in ranges)
+    print(f"[m] --device-batch --profile: {wall:.3f} s; ranges "
+          f"{sorted(ranges)}; kernel events {found} of launches {launches}",
+          flush=True)
+    if missing or found != launches:
+        problems.append(f"[m] --device-batch trace: missing ranges "
+                        f"{missing}, kernel events {found} of launches "
+                        f"{launches}")
+
+
 def check_cli(scene, files_T, cfg):
     """(m) the command line on the card at the default ``PladeConfig``.
     A subprocess ``python -m plade_tpu_torch.cli T.ply S.ply OUT --profile
@@ -1697,7 +1754,8 @@ def check_cli(scene, files_T, cfg):
     without ``--profile``, for the start-up cost.  Then ``main`` in this
     process, each run with the counts at 0: single, ``--icp``, batch over
     the scan pairs of (l) sequentially and with ``--device-batch`` (every
-    pair within the limits), and ``view`` to PLY and to HTML.  Returns the
+    pair within the limits), ``--device-batch --profile`` (its trace,
+    :func:`profiled_batch`), and ``view`` to PLY and to HTML.  Returns the
     launches by path."""
     import os
 
@@ -1832,6 +1890,7 @@ def check_cli(scene, files_T, cfg):
                   "pose errors (deg, translation) "
                   f"{[(round(r, 4), round(e, 5)) for r, e in errs]}; "
                   f"launches {paths[path]}; {card}", flush=True)
+        profiled_batch(tmp, pairs_file, problems)
 
         # view: the single result as registered PLYs and as HTML
         prefix, html = str(tmp / "view"), str(tmp / "view.html")
@@ -1941,7 +2000,9 @@ def check_batch(scene, cfg, per_clock: float, old_k3, step_run):
     (stage table, kernels a batch), K3 on the counted run's grids as in
     (f), and one ``enable_icp`` batch (K2 at 8 x 16384 x 16384).  Returns
     (the counted run's launches, launches per (kernel, shape), the K3
-    row)."""
+    row, a dict for (p): the 8 pairs with their ground truth, padded size
+    and padded clouds on the card, the B = 1, 4 and 8 transforms and
+    successes, the wall per pair at each B)."""
     from plade_tpu_torch import pipeline
     from plade_tpu_torch.core import types as ptypes
     from plade_tpu_torch.dist import mesh
@@ -1975,7 +2036,7 @@ def check_batch(scene, cfg, per_clock: float, old_k3, step_run):
             outs = [mesh.register_batch(
                 ptypes.Cloud(*(x[s:s + B] for x in tgt)),
                 ptypes.Cloud(*(x[s:s + B] for x in src)), seeds[s:s + B],
-                cfg_run) for s in range(0, BATCH, B)]
+                cfg_run, device="cuda") for s in range(0, BATCH, B)]
         res = ptypes.RegistrationResult(*(torch.cat(f) for f in zip(*outs)))
         return res.transform.cpu().numpy(), res.success.tolist(), res
 
@@ -2098,7 +2159,414 @@ def check_batch(scene, cfg, per_clock: float, old_k3, step_run):
                         f"{ok_icp}")
     if problems:
         fail("; ".join(problems))
-    return launches, by_shape, k3_row
+    batch_run = dict(pairs=pairs, truth=truth, pad=pad, clouds=(tgt, src),
+                     T1=T1, ok1=ok1, T4=results[4][0], ok4=results[4][1],
+                     T8=T8, ok8=ok8, walls_pp=walls_pp)
+    return launches, by_shape, k3_row, batch_run
+
+
+#: (p)'s 2-process world: each rank's pairs of (o)'s 8, and a worker's
+#: time limit in seconds (``import torch``, a CUDA context and 5 pairs)
+WORLD_PAIRS = ((0, 5), (5, 8))
+WORKER_TIMEOUT = 300
+
+
+def shard_launches(tag, k2, k1, k3, pairs: int, cfg, problems):
+    """The launches of each shard of a mesh run, told apart by the CUDA
+    stream they ran on (``k2``, ``k1``, ``k3``: (pairs or lanes, stream) a
+    launch): each shard one lockstep batch of ``pairs`` pairs (K2
+    ``rescore_icp_iters`` + 1 launches, K1 at least one, K3 over 2 x
+    ``pairs`` x ``ransac_exact_lanes`` lanes).  Returns the launches by
+    stream."""
+    streams = {s for _, s in k2 + k1 + k3}
+    by = {s: {name: [n for n, s2 in calls if s2 == s] for name, calls in
+              (("K2", k2), ("K1", k1), ("K3", k3))} for s in streams}
+    L = 2 * pairs * cfg.ransac_exact_lanes
+    counts = {hex(s): {k: len(v) for k, v in c.items()}
+              for s, c in by.items()}
+    print(f"{tag} launches by shard stream: {counts}; K3 lanes "
+          f"{sorted({n for n, _ in k3})} (expected {L})", flush=True)
+    for s, c in by.items():
+        if len(c["K2"]) != cfg.rescore_icp_iters + 1 or not c["K1"] \
+                or set(c["K2"] + c["K1"]) != {pairs} or not c["K3"] \
+                or set(c["K3"]) != {L}:
+            problems.append(f"{tag} shard stream {hex(s)}: not one lockstep "
+                            f"batch of {pairs} pairs: {c}")
+    return by
+
+
+def mesh_worker(rank: int, world: int, addr: str, work: Path):
+    """A rank of (p)'s 2-process world: joins the group on ``addr``, takes
+    its pairs (``WORLD_PAIRS``) of ``work/pairs.npz``, registers them on its
+    mesh (``global_mesh``: every visible card), gathers every rank's
+    results and writes them, with its launches, to ``work/rank<R>.npz``."""
+    from plade_tpu_torch.core.config import PladeConfig
+    from plade_tpu_torch.core.types import pad_cloud
+    from plade_tpu_torch.dist import mesh as mesh_mod
+    from plade_tpu_torch.dist import multihost
+    from plade_tpu_torch.kernels import nn
+    import torch.distributed as dist
+    data = np.load(work / "pairs.npz")
+    pad = int(data["pad"])
+    lo, hi = WORLD_PAIRS[rank]
+    if not multihost.initialize(addr, world, rank, timeout=WORKER_TIMEOUT):
+        fail(f"[p] rank {rank}: no process group formed")
+    try:
+        mesh = multihost.global_mesh()
+        tgt, src = (mesh_mod.stack_clouds([pad_cloud(
+            data[f"{side}p{i}"], data[f"{side}n{i}"], pad, "cpu")
+            for i in range(lo, hi)]) for side in "ts")
+        batch, offsets = multihost.local_batch_to_global(
+            mesh, tgt, src, range(lo, hi))
+        reset_counts()
+        t0 = time.perf_counter()
+        res = mesh_mod.register_batch(*batch, PladeConfig(), mesh)
+        wall = time.perf_counter() - t0
+        launches = dict(nn.LAUNCHES)
+        np.savez(work / f"rank{rank}.npz", transform=res.transform.numpy(),
+                 success=res.success.numpy(), offsets=np.array(offsets),
+                 launches=np.array([launches[k] for k in sorted(launches)]))
+    finally:
+        dist.destroy_process_group()
+    print(f"WORKER_OK rank={rank}: devices {mesh.devices}, rank "
+          f"{mesh.rank} of {mesh.world_size}, offsets {offsets}, "
+          f"{hi - lo} pairs of its own and {res.transform.shape[0]} "
+          f"gathered in {wall:.2f} s (the first call of the process); "
+          f"launches {launches}", flush=True)
+
+
+def run_world(work: Path):
+    """(p)'s 2-process world: this script twice as ``--mesh-worker`` on
+    localhost, each under ``WORKER_TIMEOUT``; a worker that fails or times
+    out fails the run.  Returns each rank's (transforms, successes,
+    launches by kernel)."""
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        addr = f"127.0.0.1:{sock.getsockname()[1]}"
+    procs = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--mesh-worker",
+         str(r), str(len(WORLD_PAIRS)), addr, str(work)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(len(WORLD_PAIRS))]
+    logs = []
+    deadline = time.perf_counter() + WORKER_TIMEOUT
+    try:
+        for proc in procs:
+            try:
+                logs.append(proc.communicate(timeout=max(
+                    1.0, deadline - time.perf_counter()))[0])
+            except subprocess.TimeoutExpired:
+                logs.append(f"timed out after {WORKER_TIMEOUT} s")
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    out = []
+    for r, (proc, log) in enumerate(zip(procs, logs)):
+        if proc.returncode != 0 or f"WORKER_OK rank={r}" not in log:
+            fail(f"[p] rank {r} exited {proc.returncode}:\n{log[-4000:]}")
+        print(f"[p] {log.strip().splitlines()[-1]}", flush=True)
+        got = np.load(work / f"rank{r}.npz")
+        names = sorted(("nearest_neighbor", "oriented_min_dist_sq",
+                        "close_and_label_lanes"))
+        out.append((got["transform"], got["success"].tolist(),
+                    dict(zip(names, got["launches"].tolist()))))
+    return out
+
+
+def host_tensors(x) -> list:
+    """Host copies of the tensors of ``x`` (a tensor, or tuples, lists,
+    NamedTuples and dicts of them), in order."""
+    if torch.is_tensor(x):
+        return [x.detach().cpu()]
+    if isinstance(x, dict):
+        x = list(x.values())
+    if isinstance(x, (list, tuple)):
+        return [t for v in x for t in host_tensors(v)]
+    return []
+
+
+def repro_stages():
+    """The functions whose outputs (p) compares between runs of one batch,
+    as (module, name), in the step's order: K3 and the plane selection of
+    the extraction, spacing, the voxel grids and the prepared clouds, the
+    matching, clustering and consistency, the penetration tests, the
+    overlap, the rescore's ICP and counts, and the registration."""
+    from plade_tpu_torch import pipeline
+    from plade_tpu_torch.extract import ransac
+    from plade_tpu_torch.match import matching
+    from plade_tpu_torch.verify import overlap, penetration
+    return ((ransac, "close_and_label_lanes"),
+            (ransac, "select_planes_device"), (pipeline, "average_spacing"),
+            (pipeline, "voxel_downsample"),
+            (pipeline, "voxel_downsample_by_plane"),
+            (pipeline, "prepare_cloud"), (matching, "match_descriptors"),
+            (matching, "hypothesis_poses"), (matching, "cluster_poses"),
+            (matching, "plane_consistency"), (penetration, "run_tests"),
+            (overlap, "overlap_scores"), (pipeline, "refine_icp"),
+            (overlap, "exact_overlap_counts"), (pipeline, "register_pair"))
+
+
+@contextlib.contextmanager
+def stage_outputs():
+    """Records (name, host copies of the outputs) of every call of
+    :func:`repro_stages`' functions inside the block, in call order."""
+    seen = []
+    with contextlib.ExitStack() as stack:
+        for module, name in repro_stages():
+            stack.enter_context(recorded_calls(
+                module, name, lambda a, out, name=name: seen.append(
+                    (name, host_tensors(out)))))
+        yield seen
+
+
+def _bits(x: torch.Tensor) -> torch.Tensor:
+    return x.contiguous().reshape(-1).view(torch.uint8)
+
+
+def first_difference(a, b):
+    """The first call at which two recordings of :func:`stage_outputs`
+    differ in a bit, as (call, name, largest finite difference), or
+    None."""
+    for k, ((na, xa), (nb, xb)) in enumerate(zip(a, b)):
+        same = na == nb and len(xa) == len(xb) and all(
+            x.shape == y.shape and x.dtype == y.dtype
+            and torch.equal(_bits(x), _bits(y)) for x, y in zip(xa, xb))
+        if not same:
+            gaps = [(x.double() - y.double()).abs() for x, y in zip(xa, xb)
+                    if x.shape == y.shape]
+            gaps = [float(g[torch.isfinite(g)].max()) for g in gaps
+                    if torch.isfinite(g).any()]
+            return k, na, max(gaps, default=float("nan"))
+    if len(a) != len(b):
+        return min(len(a), len(b)), "(number of calls)", float("nan")
+    return None
+
+
+def check_reproducible(cfg, batch_run, problems):
+    """(p) one B = 8 batch of (o)'s pairs through the step, twice, every
+    stage's outputs recorded (:func:`stage_outputs`): each the same bits.
+    Then twice with the float scatter-sums of the voxel grids and the
+    cluster centroids as ``index_add_`` (on the card, atomics: the port
+    before ``ops.index_sum``): where those two runs first differ, and how
+    far their transforms are from the first runs'."""
+    from unittest import mock
+
+    from plade_tpu_torch import pipeline
+    from plade_tpu_torch.geometry import voxel
+    from plade_tpu_torch.match import matching
+    tgt, src = batch_run["clouds"]
+    step = pipeline.register_pair_device(cfg, batch_run["pad"])
+
+    def twice():
+        runs = []
+        for _ in range(2):
+            with stage_outputs() as seen:
+                seen.append(("result", host_tensors(
+                    step(tgt, src, list(range(BATCH))))))
+            runs.append(seen)
+        return runs
+    runs = twice()
+    where = first_difference(*runs)
+    print(f"[p] one B = {BATCH} batch twice, {len(runs[0])} stage calls "
+          f"recorded: "
+          + ("every output the same bits" if where is None else
+             f"first differs at call {where[0]} ({where[1]}) by {where[2]}"),
+          flush=True)
+    if where is not None:
+        problems.append(f"[p] the same batch gave other bits at call "
+                        f"{where[0]} ({where[1]})")
+
+    def atomic(out, index, values):
+        return out.index_add_(0, index, values)
+    with mock.patch.object(voxel, "index_sum", atomic), \
+            mock.patch.object(matching, "index_sum", atomic):
+        old = twice()
+    where = first_difference(*old)
+    T = runs[0][-1][1][0]
+    moved = [float((r[-1][1][0] - T).abs().max()) for r in old]
+    print(f"[p] the same with index_add_ sums (atomics): "
+          + ("the two runs the same bits" if where is None else
+             f"first differ at call {where[0]} ({where[1]}) by {where[2]}")
+          + f"; their transforms within {max(moved):.3e} of the "
+          f"index_sum runs'", flush=True)
+
+
+def check_mesh(cfg, batch_run):
+    """(p) pairs over a pairs axis of devices and processes, on (o)'s 8
+    pairs.  First :func:`check_reproducible`.  ``register_array_pairs`` on
+    a mesh of two shards on cuda:0 (4 pairs a shard in lockstep; one
+    warm-up, three timed runs, then one run with the counts at 0 and each
+    launch's shard recorded): the bits of (o)'s two B = 4 batches, every
+    pair within 1e-4 of its B = 1 transform in (o), same success, within
+    the pose limits, and each shard one lockstep batch; the wall per pair
+    and peak memory beside (o)'s B = 8 and B = 4.  ``register_batch`` on
+    ``make_mesh()`` (every visible card): the bits of (o)'s
+    ``device="cuda"`` B = 8 result.  A 2-process world (``run_world``)
+    whose ranks hold 5 and 3 pairs: each rank's 8 gathered results within
+    1e-4 of (o)'s B = 1.  ``utils.timing.stage`` around 8 matrix products
+    that no host read waits for: with ``sync=`` its time covers their CUDA
+    events' time, without it does not.  Returns the launches by path."""
+    from plade_tpu_torch.dist import mesh as mesh_mod
+    from plade_tpu_torch.extract import ransac
+    from plade_tpu_torch.kernels import nn
+    from plade_tpu_torch.refine import icp as icp_mod
+    from plade_tpu_torch.utils import timing
+    from plade_tpu_torch.verify import overlap as overlap_mod
+    pairs, truth, T1, ok1 = (batch_run[k] for k in
+                             ("pairs", "truth", "T1", "ok1"))
+    card = gpu_info()
+    problems, paths = [], {}
+
+    def against_b1(tag, T, ok):
+        worst = 0.0
+        for i, (Rg, tg) in enumerate(truth):
+            dT = float(np.abs(T[i] - T1[i]).max())
+            worst = max(worst, dT)
+            check_pose(f"{tag} pair {i}:", T[i], Rg, tg, problems)
+            if dT >= 1e-4 or ok[i] != ok1[i] or not ok[i]:
+                problems.append(f"{tag} pair {i}: success {ok[i]} / "
+                                f"{ok1[i]}, transform differs from (o)'s B = "
+                                f"1 by {dT}")
+        print(f"{tag} every pair within {worst:.3e} of its B = 1 transform "
+              f"in (o)", flush=True)
+
+    check_reproducible(cfg, batch_run, problems)
+
+    # two shards on one card, 4 pairs each in lockstep
+    two = mesh_mod.make_mesh(devices=["cuda:0", "cuda:0"])
+
+    def run2():
+        outs = mesh_mod.register_array_pairs(pairs, cfg, seed=0, mesh=two)
+        return (np.stack([o.transform for o in outs]),
+                [o.success for o in outs])
+    run2()                                                 # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        T2, ok2 = run2()
+        walls.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+
+    def stream_of(n):
+        return lambda a, out: (n(a), torch.cuda.current_stream().cuda_stream)
+    reset_counts()
+    with recorded_calls(icp_mod, "nearest_neighbor",
+                        stream_of(lambda a: a[0].shape[0])) as k2, \
+            recorded_calls(overlap_mod, "oriented_min_dist_sq",
+                           stream_of(lambda a: a[0].shape[0])) as k1, \
+            recorded_calls(ransac, "close_and_label_lanes",
+                           stream_of(lambda a: a[0].shape[0])) as k3:
+        run2()
+        torch.cuda.synchronize()
+    paths["mesh_two_shards"] = dict(nn.LAUNCHES)
+    against_b1("[p] two shards:", T2, ok2)
+    # each shard runs one of (o)'s B = 4 batches
+    same4 = np.array_equal(T2, batch_run["T4"]) and ok2 == batch_run["ok4"]
+    print(f"[p] two shards: the bits of (o)'s B = 4 batches: {same4} (within "
+          f"{float(np.abs(T2 - batch_run['T4']).max()):.3e})", flush=True)
+    if not same4:
+        problems.append("[p] two shards differ from (o)'s B = 4 batches")
+    by = shard_launches("[p] two shards:", k2, k1, k3, BATCH // 2, cfg,
+                        problems)
+    if len(by) != 2:
+        problems.append(f"[p] two shards ran on {len(by)} streams")
+    pp = statistics.median(walls) * 1e3 / BATCH
+    print(f"[p] two shards on cuda:0: wall per pair (median of 3) {pp:.1f} "
+          f"ms, runs {[round(w * 1e3, 1) for w in walls]} ms for {BATCH} "
+          f"pairs; one card one shard in (o): B = {BATCH} "
+          f"{batch_run['walls_pp'][BATCH]:.1f} ms, B = 4 "
+          f"{batch_run['walls_pp'][4]:.1f} ms; peak memory "
+          f"{peak / 2**20:.1f} MiB; launches {paths['mesh_two_shards']}; "
+          f"{card}", flush=True)
+    # where the two shards' time goes: the device's busy share (kernels of
+    # both streams summed; over 100% where they overlap)
+    profile_stages(run2, tag="[p] two shards:")
+
+    # the default mesh: every visible card, against device="cuda"
+    default = mesh_mod.make_mesh()
+    want = tuple(torch.device(f"cuda:{k}")
+                 for k in range(torch.cuda.device_count()))
+    tgt, src = batch_run["clouds"]
+    reset_counts()
+    res = mesh_mod.register_batch(tgt, src, range(BATCH), cfg, default)
+    paths["mesh_default"] = dict(nn.LAUNCHES)
+    dT = float(np.abs(res.transform.numpy() - batch_run["T8"]).max())
+    print(f"[p] make_mesh(): {default.devices}; its B = {BATCH} result "
+          f"within {dT:.3e} of device=\"cuda\"'s in (o), successes "
+          f"{res.success.tolist()}; launches {paths['mesh_default']}",
+          flush=True)
+    if default.devices != want or dT != 0.0 \
+            or res.success.tolist() != batch_run["ok8"]:
+        problems.append(f"[p] make_mesh(): devices {default.devices}, "
+                        f"transform differs from (o)'s by {dT}")
+    del res
+
+    # the 2-process world: its workers read the pairs from a file
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as work:
+        work = Path(work)
+        np.savez(work / "pairs.npz", pad=batch_run["pad"], **{
+            f"{side}{kind}{i}": p[2 * (side == "s") + (kind == "n")]
+            for i, p in enumerate(pairs) for side in "ts" for kind in "pn"})
+        t0 = time.perf_counter()
+        ranks = run_world(work)
+        world_wall = time.perf_counter() - t0
+    total = {}
+    for r, (T, ok, launches) in enumerate(ranks):
+        against_b1(f"[p] rank {r} of 2:", T, ok)
+        if min(launches.values()) < 1:
+            problems.append(f"[p] rank {r}: a kernel was not launched: "
+                            f"{launches}")
+        total = {k: total.get(k, 0) + v for k, v in launches.items()}
+    if not np.array_equal(ranks[0][0], ranks[1][0]):
+        problems.append("[p] the ranks gathered different results")
+    paths["multihost"] = total
+    print(f"[p] 2-process world on the card: {world_wall:.1f} s from start "
+          f"to end, start-up of both processes included; launches of both "
+          f"ranks {total}; {card}", flush=True)
+
+    # utils.timing.stage around device work that no host read waits for:
+    # only with sync= does the stage's time cover the CUDA events'
+    a = torch.randn(8192, 8192, device="cuda") / 8192 ** 0.5
+    torch.cuda.synchronize()
+    staged = {}
+    for sync in (False, True):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        timing.stage_report(reset=True)
+        with timing.stage("smoke/matmuls") as out:
+            start.record()
+            x = a
+            for _ in range(8):
+                x = x @ a
+            end.record()
+            if sync:
+                out["sync"] = x
+        staged[sync] = timing.stage_report(reset=True)["smoke/matmuls"][
+            "last"] * 1e3
+        torch.cuda.synchronize()
+        staged[sync] = (staged[sync], start.elapsed_time(end))
+    del a, x
+    print(f"[p] utils.timing.stage around 8 products of 8192 x 8192: "
+          f"{staged[True][0]:.2f} ms with sync= against the events' "
+          f"{staged[True][1]:.2f} ms; without it {staged[False][0]:.3f} ms "
+          f"against {staged[False][1]:.2f} ms", flush=True)
+    if not (staged[True][0] >= staged[True][1]
+            and staged[False][0] < 0.5 * staged[False][1]):
+        problems.append(f"[p] stage times {staged} (ms, events ms): the "
+                        "synced stage must cover its events, the other not")
+    for path in ("mesh_two_shards", "mesh_default"):
+        if min(paths[path].values()) < 1:
+            problems.append(f"[p] {path}: a kernel was not launched: "
+                            f"{paths[path]}")
+    if problems:
+        fail("; ".join(problems))
+    return paths
 
 
 def main():
@@ -2109,6 +2577,9 @@ def main():
         help="a checkout of the parent tree: also build its csrc/nn.cu and "
              "csrc/cc.cu and time its K1/K2/K3 against this tree's in "
              "turns, in phases (b) and (f)")
+    parser.add_argument(
+        "--mesh-worker", nargs=4, metavar=("RANK", "WORLD", "ADDR", "DIR"),
+        default=None, help="run as a rank of phase (p)'s 2-process world")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is false; this smoke run "
@@ -2119,6 +2590,10 @@ def main():
     except ModuleNotFoundError:
         fail("plade_tpu_torch is not beside chip_smoke.py: run the script "
              "from the root of a checkout of the repository")
+    if args.mesh_worker:
+        rank, world, addr, work = args.mesh_worker
+        mesh_worker(int(rank), int(world), addr, Path(work))
+        return
     from plade_tpu_torch.core import types as ptypes
     from plade_tpu_torch.core.config import PladeConfig
     from plade_tpu_torch.io import synthetic as syn
@@ -2250,8 +2725,11 @@ def main():
     paths.update(check_cli(scene, clouds_run["files_T"], cfg))
     paths.update(check_scene(cfg))
     # (o) the bench's 8 pairs in lockstep
-    batch_launches, batch_by_shape, k3_row = check_batch(
+    batch_launches, batch_by_shape, k3_row, batch_run = check_batch(
         scene, cfg, per_clock, old_k3, step_run)
+    # (p) pairs over a pairs axis: two shards on the card, the default
+    # mesh, a 2-process world; utils.timing.stage around one step
+    paths.update(check_mesh(cfg, batch_run))
     rows.append(k3_row)
     for row in rows:
         if row.get("path") == "register_batch" and "launches" not in row:

@@ -12,15 +12,18 @@ Extensions over the reference (flagged, defaults match reference behavior):
   --device-batch run batch pairs through the device step
                  (dist/mesh.register_array_pairs) instead of the sequential
                  host loop: 8 pairs at a time (its ``batch_pairs``) in
-                 lockstep, each kernel launched once for all of them
+                 lockstep on each card of the mesh ``--device`` names
+                 (``cuda``: every visible card), each kernel launched once
+                 for a card's pairs
   --resume       batch mode: record per-pair results in a sidecar state
                  file and skip already-completed pairs on restart
                  (checkpoint/resume — absent from the reference); the state
                  file is interchangeable with ``plade_tpu.cli``'s
   --profile DIR  write a torch.profiler Chrome trace of the run to
                  DIR/trace.json (CPU activity, and CUDA activity on the card)
-  --device DEV   where the registration runs: ``cuda`` (the default; no
-                 card raises) or ``cpu``
+  --device DEV   where the registration runs: ``cuda`` (the default:
+                 every visible card for --device-batch; no card raises),
+                 ``cuda:k`` or ``cpu``
   scene DIR OUT  register a scan directory pairwise + pose-graph sync
   view RES OUT   ResultViewer: OUT.html -> self-contained interactive
                  WebGL viewer; other OUT -> transformed-PLY export
@@ -58,23 +61,6 @@ def _write_single(out, target, source, T, ok):
                   + _format_matrix(np.eye(4)) + "\n")
 
 
-@contextlib.contextmanager
-def _profiled(trace_dir, device):
-    """Trace the block with ``torch.profiler`` and write its Chrome trace
-    to ``trace_dir/trace.json``; a no-op when ``trace_dir`` is None."""
-    if not trace_dir:
-        yield
-        return
-    from torch.profiler import ProfilerActivity, profile
-    activities = [ProfilerActivity.CPU]
-    if device.type == "cuda":
-        activities.append(ProfilerActivity.CUDA)
-    os.makedirs(trace_dir, exist_ok=True)
-    with profile(activities=activities) as prof:
-        yield
-    prof.export_chrome_trace(os.path.join(trace_dir, "trace.json"))
-
-
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(
         prog="plade-tpu", usage=USAGE, add_help=True)
@@ -85,8 +71,9 @@ def main(argv=None) -> int:
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--device-batch", action="store_true",
                         help="batch mode: run pairs through the device "
-                             "step, 8 at a time in lockstep "
-                             "(register_array_pairs' batch_pairs)")
+                             "step, 8 at a time a card in lockstep "
+                             "(register_array_pairs' batch_pairs) over "
+                             "every card --device names")
     parser.add_argument("--resume", action="store_true",
                         help="batch mode: checkpoint per-pair results and "
                              "skip completed pairs on restart")
@@ -107,7 +94,9 @@ def main(argv=None) -> int:
     # no card and no --device cpu raises here, before any file is opened
     device = _run_device(args.device)
 
-    with _profiled(args.profile, device):
+    from ..utils.timing import profiler_trace
+    with profiler_trace(args.profile) if args.profile else \
+            contextlib.nullcontext():
         if args.paths[0] == "scene" and len(args.paths) == 3:
             from .scene import run_scene
             return run_scene(args.paths[1], args.paths[2], cfg, args.seed,
@@ -326,8 +315,10 @@ def _run_batch(pairs_file, result_file, cfg, seed, device_batch,
 
 def _register_batch_device(pairs, cfg, seed, device):
     """All pairs through the device step (``register_array_pairs``, its
-    default ``batch_pairs`` in lockstep)."""
-    from ..dist.mesh import register_array_pairs
+    default ``batch_pairs`` a shard in lockstep) on the mesh ``device``
+    names: ``cuda`` every visible card, ``cuda:k`` that card, ``cpu`` one
+    CPU shard."""
+    from ..dist.mesh import device_mesh, register_array_pairs
     from ..io import native
     from ..io.ply import read_ply
 
@@ -342,7 +333,8 @@ def _register_batch_device(pairs, cfg, seed, device):
         tpts, tnrm = tgt if tgt else read_ply(target)
         spts, snrm = src if src else read_ply(source)
         clouds.append((tpts, tnrm, spts, snrm))
-    return register_array_pairs(clouds, cfg, seed, device)
+    return register_array_pairs(clouds, cfg, seed,
+                                mesh=device_mesh(device))
 
 
 if __name__ == "__main__":

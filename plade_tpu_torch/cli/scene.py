@@ -18,9 +18,14 @@ import numpy as np
 
 def run_scene(scene_dir: str, out_file: str, cfg, seed: int = 0,
               loop_stride: int = 0, gt_file: str | None = None,
-              device_batch: bool = False, device=None) -> int:
+              device_batch: bool = False, device=None, mesh=None) -> int:
+    """Register the scans of ``scene_dir`` pairwise and write their
+    synchronized poses to ``out_file``.  With ``device_batch`` the pairs
+    run through the device step on ``mesh`` (by default the mesh
+    ``device`` names: every visible card for ``cuda``); the sequential
+    registrations and the pose graph run on ``device``."""
     from ..dist import posegraph
-    from ..dist.mesh import register_array_pairs
+    from ..dist.mesh import device_mesh, register_array_pairs
     from ..io import resso
     from ..io.ply import read_ply
     from ..pipeline import register_files
@@ -39,7 +44,7 @@ def run_scene(scene_dir: str, out_file: str, cfg, seed: int = 0,
     n_fail = 0
     if device_batch:
         # all pairwise registrations through the device step, 8 pairs at a
-        # time in lockstep (scans loaded once)
+        # time a shard in lockstep (scans loaded once)
         clouds = {}
         for i, j in pairs:
             for k in (i, j):
@@ -47,7 +52,8 @@ def run_scene(scene_dir: str, out_file: str, cfg, seed: int = 0,
                     clouds[k] = read_ply(scene.scan_files[k])
         outcomes = register_array_pairs(
             [(clouds[i][0], clouds[i][1], clouds[j][0], clouds[j][1])
-             for i, j in pairs], cfg, seed, device)
+             for i, j in pairs], cfg, seed,
+            mesh=mesh if mesh is not None else device_mesh(device))
         for (i, j), r in zip(pairs, outcomes):
             if r.success:
                 edges.append((i, j, r.transform, float(max(r.score, 1e-3))))

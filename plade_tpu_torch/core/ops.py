@@ -8,6 +8,8 @@
   last key primary, done as successive stable sorts from the least
   significant key.
 * :func:`scalar` makes a 0-d float32 device tensor without a host copy.
+* :func:`index_sum` is ``index_add_`` along the first axis that sums in
+  the same order on every run, on the card too.
 
 Both sorts work along the last axis, over any leading axes.  The pipeline
 carries a leading axis of pairs (or clouds) where the reference vmaps:
@@ -50,6 +52,20 @@ def nonzero_static(mask: torch.Tensor, size: int, fill_value: int
     out.scatter_(-1, torch.where(write, dest, size),
                  torch.where(write, src, fill_value))
     return out[..., :size]
+
+
+def index_sum(out: torch.Tensor, index: torch.Tensor,
+              values: torch.Tensor) -> torch.Tensor:
+    """``out.index_add_(0, index, values)``, the rows of ``values`` that
+    share an index added in the same order on every run.  On the card
+    ``index_add_`` adds with atomics, in whatever order the threads reach
+    them, so a float sum's last bits vary from run to run;
+    ``index_put_(accumulate=True)`` sorts the indices (stably) and adds
+    each index's rows in that order.  On the CPU ``index_add_`` already
+    adds them in index order."""
+    if out.is_cuda:
+        return out.index_put_((index,), values, accumulate=True)
+    return out.index_add_(0, index, values)
 
 
 def lexsort(keys) -> torch.Tensor:

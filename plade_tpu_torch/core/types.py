@@ -10,6 +10,7 @@ every field, and ``mask`` follows it): padded points sit at
 """
 from __future__ import annotations
 
+import threading
 from typing import NamedTuple
 
 import numpy as np
@@ -19,14 +20,17 @@ import torch
 BIG = 1.0e8
 
 #: host reads of device values made through ``host_value``; a run resets it
-#: and reads it to count its host syncs
+#: and reads it to count its host syncs (the shards of a mesh read from
+#: threads of their own, hence the lock)
 HOST_SYNCS = {"count": 0}
+_SYNCS_LOCK = threading.Lock()
 
 
 def host_value(t: torch.Tensor):
     """The Python value of a tensor (a number for a 0-d tensor, else a
     list); counts one host sync."""
-    HOST_SYNCS["count"] += 1
+    with _SYNCS_LOCK:
+        HOST_SYNCS["count"] += 1
     return t.tolist()
 
 

@@ -1,20 +1,27 @@
-"""Batch registration of pairs on one card (``plade_tpu/dist/mesh.py``).
+"""Batch registration of pairs over a pairs axis of devices
+(``plade_tpu/dist/mesh.py``).
 
 The reference vmaps its device step over a leading pair axis
-(``make_batch_register``) and shards that batch over a JAX device mesh (a
-``pairs`` axis of data parallelism, an ``intra`` axis for the point
-buffers).  Here a batch is the device step of
-``pipeline.build_register_device_fn`` over a leading pair axis on one card:
-its B pairs run in lockstep, each kernel launched once for all of them
-(K1/K2 with a pair axis, K3 over the lanes of all 2B clouds), each host
-loop run to the slowest pair.  ``register_array_pairs`` takes its pairs
-``batch_pairs`` at a time, where the reference takes the mesh's pairs axis
-a call.  The mesh helpers (``make_mesh``, ``batch_specs``,
-``result_specs``, ``make_batch_register``) are JAX sharding and have no
-counterpart here; pairs over several cards are a later step of the port.
+(``make_batch_register``) and shards that batch over a JAX device mesh: a
+``pairs`` axis of data parallelism and an ``intra`` axis for the point
+buffers.  Here a batch on one device is the device step of
+``pipeline.build_register_device_fn`` over a leading pair axis: its B pairs
+run in lockstep, each kernel launched once for all of them (K1/K2 with a
+pair axis, K3 over the lanes of all 2B clouds), each host loop run to the
+slowest pair.  A :class:`Mesh` is the pairs axis: a list of devices (one
+device may stand more than once), each a shard that runs its contiguous
+part of a batch in lockstep, in a host thread of its own (the caller's,
+when one shard has pairs) and on a CUDA stream of its own.  A mesh of several processes (``dist/multihost.py``)
+adds a rank and a process group: each rank runs its own pairs on its own
+devices, and every rank gets every pair's result.  Pairs never
+communicate, so only the small ``RegistrationResult`` crosses devices and
+ranks.  The ``intra`` axis (one pair's point buffers over several devices)
+is not ported yet (ROADMAP Queue 1 step 14).
 """
 from __future__ import annotations
 
+import functools
+from concurrent.futures import ThreadPoolExecutor
 from typing import NamedTuple
 
 import numpy as np
@@ -24,6 +31,19 @@ from ..core.config import PladeConfig
 from ..core.types import Cloud, RegistrationResult, pad_cloud
 from ..pipeline import (_cap_cloud, _pad_size, _run_device,
                         register_pair_device)
+
+PAIRS = "pairs"
+INTRA = "intra"
+
+
+class Mesh(NamedTuple):
+    """The pairs axis of devices this process runs its pairs on; ``rank``
+    and ``world_size`` place the process in a multi-process mesh (0 and 1,
+    ``group`` None, for one process)."""
+    devices: tuple
+    rank: int = 0
+    world_size: int = 1
+    group: object = None
 
 
 class PairOutcome(NamedTuple):
@@ -40,25 +60,167 @@ class PairOutcome(NamedTuple):
     cluster_truncated: int = 0      # hypotheses beyond the cluster prefix
 
 
+def make_mesh(n_devices: int | None = None, intra: int = 1,
+              devices=None) -> Mesh:
+    """A pairs axis over the first ``n_devices`` of ``devices`` (torch
+    devices or their names; one device may stand more than once), by
+    default every visible CUDA card.  Without a card the default raises
+    ``RuntimeError``, as the entry points do."""
+    if devices is None:
+        _run_device("cuda")
+        devices = [f"cuda:{k}" for k in range(torch.cuda.device_count())]
+    devices = tuple(_run_device(d) for d in devices)
+    if n_devices is None:
+        n_devices = len(devices)
+    if not 1 <= n_devices <= len(devices):
+        raise ValueError(f"n_devices={n_devices} of {len(devices)} devices")
+    if n_devices % intra != 0:
+        raise ValueError(f"n_devices={n_devices} not divisible by "
+                         f"intra={intra}")
+    if intra != 1:
+        raise NotImplementedError(
+            f"intra={intra}: one pair over several devices (the intra axis) "
+            "is not ported yet (ROADMAP Queue 1 step 14); use intra=1")
+    return Mesh(devices[:n_devices])
+
+
+def device_mesh(device=None) -> Mesh:
+    """The mesh a ``device`` argument names: every visible card for
+    ``cuda`` without an index (the default), else that one device."""
+    device = _run_device(device)
+    if device.type == "cuda" and device.index is None:
+        return make_mesh()
+    return make_mesh(devices=[device])
+
+
 def stack_clouds(clouds: list[Cloud]) -> Cloud:
     """Stack same-shape Clouds along a new leading batch axis."""
     return Cloud(*(torch.stack(xs) for xs in zip(*clouds)))
 
 
+def _stack_padded(clouds, pad: int, device) -> Cloud:
+    """(points, normals) pairs padded to ``pad`` rows on ``device`` and
+    stacked; no clouds give a Cloud of 0 pairs on the CPU."""
+    if not clouds:
+        return Cloud(torch.zeros(0, pad, 3), torch.zeros(0, pad, 3),
+                     torch.zeros(0, dtype=torch.int32))
+    return stack_clouds([pad_cloud(p, n, pad, device) for p, n in clouds])
+
+
+def _bounds(n: int, k: int) -> list[int]:
+    """Offsets of ``n`` items split into ``k`` contiguous parts whose sizes
+    differ by at most 1, the larger first."""
+    q, r = divmod(n, k)
+    return [i * q + min(i, r) for i in range(k + 1)]
+
+
+def _empty_result() -> RegistrationResult:
+    """A ``RegistrationResult`` of 0 pairs on the CPU."""
+    i32 = torch.int32
+    return RegistrationResult(
+        transform=torch.zeros(0, 4, 4), score=torch.zeros(0),
+        overlap=torch.zeros(0), matched_planes=torch.zeros(0, dtype=i32),
+        success=torch.zeros(0, dtype=torch.bool),
+        match_saturated=torch.zeros(0, dtype=i32),
+        pen_overflow=torch.zeros(0, dtype=i32),
+        cluster_truncated=torch.zeros(0, dtype=i32))
+
+
+def _in_shard(device: torch.device, after, fn):
+    """``fn()`` in this thread on ``device``: for a card under its device
+    context and on a stream of its own that first waits for ``after`` (the
+    stream that made the inputs, or None)."""
+    if device.type != "cuda":
+        return fn()
+    with torch.cuda.device(device):
+        stream = torch.cuda.Stream(device)
+        if after is not None:
+            stream.wait_stream(after)
+        with torch.cuda.stream(stream):
+            return fn()
+
+
+def _register_shards(tgt_batch: Cloud, src_batch: Cloud, seeds, cfg,
+                     devices, draws) -> RegistrationResult:
+    """The batch split into contiguous shards over ``devices``, each shard
+    in lockstep in a host thread of its own (a lone shard in this thread);
+    the results on the CPU in pair order.  A shard's exception is raised
+    here once every shard has ended."""
+    B, N = tgt_batch.points.shape[:2]
+    after = torch.cuda.current_stream(tgt_batch.points.device) \
+        if tgt_batch.points.is_cuda else None
+    cut = _bounds(B, len(devices))
+
+    def shard(device, lo, hi):
+        step = register_pair_device(cfg, N, device)
+        res = step(Cloud(*(x[lo:hi] for x in tgt_batch)),
+                   Cloud(*(x[lo:hi] for x in src_batch)), seeds[lo:hi],
+                   None if draws is None else draws[2 * lo:2 * hi])
+        # the copy to the host waits for the shard's stream
+        return RegistrationResult(*(x.cpu() for x in res))
+
+    jobs = [(d, lo, hi) for d, lo, hi in zip(devices, cut, cut[1:])
+            if hi > lo]
+    if not jobs:
+        return _empty_result()
+    if len(jobs) == 1:
+        # in this thread, where the caller's profiler sees its ranges
+        (d, lo, hi), = jobs
+        return _in_shard(d, after, functools.partial(shard, d, lo, hi))
+    with ThreadPoolExecutor(max_workers=len(jobs)) as pool:
+        futures = [pool.submit(_in_shard, d, after,
+                               functools.partial(shard, d, lo, hi))
+                   for d, lo, hi in jobs]
+    parts = [f.result() for f in futures]
+    return RegistrationResult(*(torch.cat(f) for f in zip(*parts)))
+
+
+def _gather(local: RegistrationResult, mesh: Mesh) -> RegistrationResult:
+    """Every rank's results, in rank order, on every rank (a rank may have
+    none)."""
+    import torch.distributed as dist
+    parts = [None] * mesh.world_size
+    dist.all_gather_object(parts, local, group=mesh.group)
+    return RegistrationResult(*(torch.cat(f) for f in zip(*parts)))
+
+
 def register_batch(tgt_batch: Cloud, src_batch: Cloud, seeds,
-                   cfg: PladeConfig, device=None) -> RegistrationResult:
-    """Register a batch of pairs in lockstep on ``device`` (by default
-    CUDA): the device step over the leading axis of ``tgt_batch`` /
-    ``src_batch`` (Clouds of B pairs padded to one size), pair ``i``
-    drawing from ``seeds[i]``.  Each pair's result is what the step gives
-    that pair alone.  Returns the results stacked on that axis."""
-    step = register_pair_device(cfg, tgt_batch.points.shape[1], device)
-    return step(tgt_batch, src_batch, [int(s) for s in seeds])
+                   cfg: PladeConfig, mesh: Mesh | None = None, device=None,
+                   draws=None) -> RegistrationResult:
+    """Register a batch of pairs: ``tgt_batch`` / ``src_batch`` are Clouds
+    of B pairs padded to one size with a leading pair axis, pair ``i``
+    drawing from ``seeds[i]`` (or, with ``draws``, from the 2B functions
+    in the step's order: target 0, source 0, target 1, ...).
+
+    With ``device``, the batch runs in lockstep on that one device, and the
+    results are tensors there.  Otherwise it runs on ``mesh`` (by default
+    :func:`make_mesh`, every visible card): split into contiguous shards
+    over the mesh's devices (sizes differing by at most 1; a shard of 0
+    pairs launches nothing), each in lockstep, and the results are CPU
+    tensors in pair order.  On a mesh of several processes the batch is
+    this rank's pairs (:func:`multihost.local_batch_to_global`) and every
+    rank returns every rank's results, in rank order.  Each pair's result
+    is what the step gives that pair alone."""
+    seeds = [int(s) for s in seeds]
+    B = tgt_batch.points.shape[0]
+    if len(seeds) != B or (draws is not None and len(draws) != 2 * B):
+        raise ValueError(f"register_batch: {B} pairs, {len(seeds)} seeds, "
+                         f"{None if draws is None else len(draws)} draws")
+    if device is not None:
+        if mesh is not None:
+            raise ValueError("register_batch: give mesh or device, not both")
+        step = register_pair_device(cfg, tgt_batch.points.shape[1], device)
+        return step(tgt_batch, src_batch, seeds, draws)
+    if mesh is None:
+        mesh = make_mesh()
+    res = _register_shards(tgt_batch, src_batch, seeds, cfg, mesh.devices,
+                           draws)
+    return _gather(res, mesh) if mesh.world_size > 1 else res
 
 
 def register_array_pairs(cloud_pairs, cfg: PladeConfig, seed: int = 0,
-                         device=None, batch_pairs: int = 8
-                         ) -> list[PairOutcome]:
+                         mesh: Mesh | None = None, device=None,
+                         batch_pairs: int = 8) -> list[PairOutcome]:
     """Register a list of raw numpy cloud pairs through the device step:
     the host-level entry of batch flows.
 
@@ -66,15 +228,24 @@ def register_array_pairs(cloud_pairs, cfg: PladeConfig, seed: int = 0,
     cloud is capped at ``cfg.max_points`` (pair ``i``'s target drawn from
     ``seed + 2i``, its source from ``seed + 2i + 1``), all pairs are padded
     to one size, and pair ``i`` registers with seed ``seed + i``.  The
-    pairs run ``batch_pairs`` at a time in lockstep (:func:`register_batch`;
-    the last batch is smaller, never padded with a repeated pair), so every
-    outcome is what the step gives that pair alone.  No target/source swap
-    is applied (the device step mirrors the cloud-level reference
-    overload, plade.cpp:638-662).  Returns one PairOutcome per input
-    pair."""
-    device = _run_device(device)
+    pairs run in lockstep ``batch_pairs`` at a time on ``device``, or on
+    every shard of ``mesh`` (by default :func:`make_mesh`, every visible
+    card; on a mesh of several processes every rank passes every pair, runs
+    its part and returns all): :func:`register_batch` on chunks of
+    ``batch_pairs`` pairs a shard.  No chunk is padded with a repeated
+    pair, so every outcome is what the step gives that pair alone.  No
+    target/source swap is applied (the device step mirrors the cloud-level
+    reference overload, plade.cpp:638-662).  Returns one PairOutcome per
+    input pair."""
     if batch_pairs < 1:
         raise ValueError(f"batch_pairs must be >= 1, got {batch_pairs}")
+    if mesh is not None and device is not None:
+        raise ValueError("register_array_pairs: give mesh or device, not "
+                         "both")
+    if device is not None:
+        device = _run_device(device)
+    elif mesh is None:
+        mesh = make_mesh()
     if not cloud_pairs:
         return []
     capped = []
@@ -91,16 +262,23 @@ def register_array_pairs(cloud_pairs, cfg: PladeConfig, seed: int = 0,
         max_n = max(max_n, tp.shape[0], sp.shape[0])
         capped.append((tp, tn, sp, sn))
     pad = _pad_size(max_n, maximum=cfg.max_points)
+    # the padded clouds: on the device, or on the host for the shards
+    home = device or torch.device("cpu")
+    D = len(mesh.devices) if mesh is not None else 1
+    W = mesh.world_size if mesh is not None else 1
     outcomes = []
-    for start in range(0, len(capped), batch_pairs):
-        chunk = capped[start:start + batch_pairs]
-        tgt_b = stack_clouds([pad_cloud(c[0], c[1], pad, device)
-                              for c in chunk])
-        src_b = stack_clouds([pad_cloud(c[2], c[3], pad, device)
-                              for c in chunk])
+    for start in range(0, len(capped), batch_pairs * D * W):
+        chunk = capped[start:start + batch_pairs * D * W]
+        # this rank's part: its devices' shards of the chunk
+        cut = _bounds(len(chunk), D * W)
+        r = mesh.rank if mesh is not None else 0
+        lo, hi = cut[r * D], cut[(r + 1) * D]
+        tgt_b, src_b = (_stack_padded([c[2 * s:2 * s + 2]
+                                       for c in chunk[lo:hi]], pad, home)
+                        for s in (0, 1))
         res = register_batch(tgt_b, src_b,
-                             [seed + start + i for i in range(len(chunk))],
-                             cfg, device)
+                             [seed + start + lo + i for i in range(hi - lo)],
+                             cfg, mesh=mesh, device=device)
         host = RegistrationResult(*(x.cpu().numpy() for x in res))
         outcomes += [PairOutcome(
             host.transform[i], bool(host.success[i]), float(host.score[i]),

@@ -35,6 +35,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..core.ops import index_sum
 from ..pipeline import _run_device
 
 
@@ -73,8 +74,8 @@ def synchronize(graph: PoseGraph, num_scans: int):
     A = torch.zeros((K, K, 3, 3), dtype=torch.float32, device=dev)
     A.index_put_((i, j), wR, accumulate=True)
     A.index_put_((j, i), wR.transpose(-1, -2), accumulate=True)
-    deg = torch.zeros((K,), dtype=torch.float32, device=dev)
-    deg.index_add_(0, i, w).index_add_(0, j, w)
+    deg = index_sum(index_sum(torch.zeros((K,), dtype=torch.float32,
+                                          device=dev), i, w), j, w)
     ar = torch.arange(K, device=dev)
     A[ar, ar] += torch.eye(3, device=dev) * torch.clamp(deg, min=1e-6)[
         :, None, None]

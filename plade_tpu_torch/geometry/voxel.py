@@ -10,15 +10,16 @@ order must be the reference's exactly: truncation keeps a prefix of it.
 * There is no ``lexsort``: :func:`..core.ops.lexsort` does successive
   stable sorts, least significant key first.  The per-plane variant has
   three 32-bit keys, which do not pack into one int64.
-* The centroid sums are float scatter-adds (``index_add_``); on the card
-  they use atomics, so their summation order, and the last bits of a
-  centroid, may differ from run to run.
+* The centroid sums are float scatter-adds through
+  :func:`..core.ops.index_sum`, which adds a cell's points in the same
+  order on every run (``index_add_``'s atomics on the card would not).
 """
 from __future__ import annotations
 
 import torch
 
-from ..core.ops import drop, flat_rows, lexsort, lift, per_pair, take
+from ..core.ops import (drop, flat_rows, index_sum, lexsort, lift,
+                        per_pair, take)
 from ..core.types import BIG, Cloud
 
 # spatial-hash primes of the reference (Teschner et al. 2003) and its
@@ -96,14 +97,14 @@ def voxel_downsample(points: torch.Tensor, mask: torch.Tensor, leaf,
     seg_clip = flat_rows(torch.where(seg < max_out, seg, max_out),
                          max_out + 1)
     sp = take(points, order)
-    sums = torch.zeros((B * (max_out + 1), 3), dtype=torch.float32,
-                       device=dev).index_add_(
-        0, seg_clip, torch.where(sm[..., None], sp, 0.0).reshape(-1, 3)) \
+    rows = B * (max_out + 1)
+    sums = index_sum(
+        torch.zeros((rows, 3), dtype=torch.float32, device=dev), seg_clip,
+        torch.where(sm[..., None], sp, 0.0).reshape(-1, 3)) \
         .reshape(B, max_out + 1, 3)
-    cnts = torch.zeros((B * (max_out + 1),), dtype=torch.float32,
-                       device=dev).index_add_(
-        0, seg_clip, sm.to(torch.float32).reshape(-1)) \
-        .reshape(B, max_out + 1)
+    cnts = index_sum(
+        torch.zeros((rows,), dtype=torch.float32, device=dev), seg_clip,
+        sm.to(torch.float32).reshape(-1)).reshape(B, max_out + 1)
     centroids = sums[:, :max_out] / torch.clamp(cnts[:, :max_out, None],
                                                 min=1.0)
     count = torch.clamp(count, max=max_out)
@@ -111,9 +112,9 @@ def voxel_downsample(points: torch.Tensor, mask: torch.Tensor, leaf,
     out_points = torch.where(valid[..., None], centroids, BIG)
     if normals is not None:
         sn = take(normals, order)
-        nsums = torch.zeros((B * (max_out + 1), 3), dtype=torch.float32,
-                            device=dev).index_add_(
-            0, seg_clip, torch.where(sm[..., None], sn, 0.0).reshape(-1, 3)) \
+        nsums = index_sum(
+            torch.zeros((rows, 3), dtype=torch.float32, device=dev),
+            seg_clip, torch.where(sm[..., None], sn, 0.0).reshape(-1, 3)) \
             .reshape(B, max_out + 1, 3)
         mean_n = nsums[:, :max_out]
         mean_n = mean_n / torch.clamp(
@@ -166,14 +167,14 @@ def voxel_downsample_by_plane(points: torch.Tensor, mask: torch.Tensor,
                                  torch.clamp(spl, max=P - 1) * max_out
                                  + local, P * max_out), P * max_out + 1)
     sp = take(points, order)
-    sums = torch.zeros((B * (P * max_out + 1), 3), dtype=torch.float32,
-                       device=dev).index_add_(
-        0, flat, torch.where(sm[..., None], sp, 0.0).reshape(-1, 3)) \
+    rows = B * (P * max_out + 1)
+    sums = index_sum(
+        torch.zeros((rows, 3), dtype=torch.float32, device=dev), flat,
+        torch.where(sm[..., None], sp, 0.0).reshape(-1, 3)) \
         .reshape(B, P * max_out + 1, 3)
-    cnts = torch.zeros((B * (P * max_out + 1),), dtype=torch.float32,
-                       device=dev).index_add_(
-        0, flat, sm.to(torch.float32).reshape(-1)) \
-        .reshape(B, P * max_out + 1)
+    cnts = index_sum(
+        torch.zeros((rows,), dtype=torch.float32, device=dev), flat,
+        sm.to(torch.float32).reshape(-1)).reshape(B, P * max_out + 1)
     centroids = (sums[:, :-1] / torch.clamp(cnts[:, :-1, None], min=1.0)) \
         .reshape(B, P, max_out, 3)
     occupied = (cnts[:, :-1] > 0).reshape(B, P, max_out)

@@ -1,8 +1,8 @@
 """RESSO dataset loader + batch evaluation harness.
 
 A copy of ``plade_tpu/io/resso.py`` (that package imports JAX when it is
-imported); ``evaluate_scene`` runs the port's registration on ``device``
-where the original takes a JAX mesh.
+imported); ``evaluate_scene`` runs the port's registration on the port's
+mesh (``dist/mesh.py``) or on ``device``.
 
 RESSO ("Real-world Scans with Small Overlap", linked from the reference
 README "Test Dataset" section; not bundled) is the reference's external
@@ -139,15 +139,16 @@ def rotation_error_deg(Ra: np.ndarray, Rb: np.ndarray) -> float:
 def evaluate_scene(scene: RessoScene, cfg=None, pairs=None, seed: int = 0,
                    rot_thresh_deg: float = 5.0, trans_thresh: float = 0.5,
                    verbose: bool = True, device_batch: bool = False,
-                   device=None) -> EvalSummary:
+                   mesh=None, device=None) -> EvalSummary:
     """Register scan pairs of a scene and score against ground truth, on
     ``device`` (by default CUDA; ``device="cpu"`` for the CPU).
 
     ``device_batch=True`` routes all pairs through the device step
     (dist/mesh.register_array_pairs, its default ``batch_pairs`` = 8 pairs
-    at a time in lockstep) instead of the sequential host loop of
-    ``register_files`` (the reference's per-pair orchestration,
-    main.cpp:97-158).
+    at a time a shard in lockstep) on ``mesh``, by default the mesh
+    ``device`` names (every visible card for ``cuda``), instead of the
+    sequential host loop of ``register_files`` (the reference's per-pair
+    orchestration, main.cpp:97-158).
     """
     from ..core.config import PladeConfig
     from ..pipeline import register_files
@@ -158,7 +159,7 @@ def evaluate_scene(scene: RessoScene, cfg=None, pairs=None, seed: int = 0,
                           trans_thresh=trans_thresh)
 
     if device_batch:
-        from ..dist.mesh import register_array_pairs
+        from ..dist.mesh import device_mesh, register_array_pairs
         from .ply import read_ply
         clouds = {}
         for i, j in pairs:
@@ -167,7 +168,9 @@ def evaluate_scene(scene: RessoScene, cfg=None, pairs=None, seed: int = 0,
                     clouds[k] = read_ply(scene.scan_files[k])
         cloud_pairs = [(clouds[i][0], clouds[i][1],
                         clouds[j][0], clouds[j][1]) for i, j in pairs]
-        outcomes = register_array_pairs(cloud_pairs, cfg, seed, device)
+        outcomes = register_array_pairs(
+            cloud_pairs, cfg, seed,
+            mesh=mesh if mesh is not None else device_mesh(device))
     else:
         outcomes = None
 

@@ -16,6 +16,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -29,10 +30,19 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false")
 
 #: kernel launches per kernel, counted by the wrappers where they launch and
-#: nowhere else: a run resets the counts and reads them to show that its
-#: path went through the kernels
+#: nowhere else (:func:`count_launch`): a run resets the counts and reads
+#: them to show that its path went through the kernels
 LAUNCHES = {"nearest_neighbor": 0, "oriented_min_dist_sq": 0,
             "close_and_label_lanes": 0}
+#: the shards of a mesh launch from host threads of their own: the counts'
+#: read-modify-write and the first build of the library hold this lock
+_LOCK = threading.Lock()
+
+
+def count_launch(name: str):
+    """Count one launch of kernel ``name``."""
+    with _LOCK:
+        LAUNCHES[name] += 1
 
 _P = ctypes.c_void_p
 _SIGNATURES = {
@@ -120,9 +130,15 @@ def build(verbose: bool = False) -> Path:
     return lib
 
 
-@functools.lru_cache(maxsize=1)
 def library() -> ctypes.CDLL:
-    """The loaded kernel library, built on first call."""
+    """The loaded kernel library, built on first call (once, whichever
+    thread calls first)."""
+    with _LOCK:
+        return _load()
+
+
+@functools.lru_cache(maxsize=1)
+def _load() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build()))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)

@@ -21,7 +21,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from .build import LAUNCHES
+from .build import LAUNCHES, count_launch  # noqa: F401
 
 #: largest grid side the kernel takes (it packs labels <= G * G into 16-bit
 #: halves; G = 32 and 64 are specialised, other sides run the G = 128
@@ -94,7 +94,7 @@ def close_and_label_lanes(occ_counts: torch.Tensor,
     if err != 0:
         raise RuntimeError("close_and_label_lanes: CUDA launch failed with "
                            f"error {err}")
-    LAUNCHES["close_and_label_lanes"] += 1
+    count_launch("close_and_label_lanes")
     return out
 
 

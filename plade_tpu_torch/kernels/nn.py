@@ -19,7 +19,7 @@ from __future__ import annotations
 
 import torch
 
-from .build import LAUNCHES
+from .build import LAUNCHES, count_launch  # noqa: F401
 
 #: elements of one (query, reference) block in the plain versions
 _BLOCK_ELEMS = 1 << 22
@@ -135,7 +135,7 @@ def nearest_neighbor(queries: torch.Tensor, refs: torch.Tensor):
             queries.data_ptr(), refs.data_ptr(), d.data_ptr(), i.data_ptr(),
             keys.data_ptr(), P, Q, T, stream)
     _raise_on("nearest_neighbor", err)
-    LAUNCHES["nearest_neighbor"] += 1
+    count_launch("nearest_neighbor")
     return d, i
 
 
@@ -181,5 +181,5 @@ def oriented_min_dist_sq(queries: torch.Tensor, qnormals: torch.Tensor,
             rnormals.data_ptr(), float(normal_cos), d.data_ptr(), P, Q, T,
             stream)
     _raise_on("oriented_min_dist_sq", err)
-    LAUNCHES["oriented_min_dist_sq"] += 1
+    count_launch("oriented_min_dist_sq")
     return d

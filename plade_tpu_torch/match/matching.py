@@ -14,10 +14,10 @@ Differences from the reference package, none of which changes a result:
 * Every function takes one pair or a leading axis of pairs (the
   reference's ``jax.vmap`` of the pair step); the single-pair call is the
   one-pair call of the batched code.
-* The cluster-centroid sums are float scatter-adds, which use atomics on
-  the card: their last bits may differ from run to run.  The packed
-  representative argmin is an int32 ``scatter_reduce("amin")`` and is
-  deterministic.
+* The cluster-centroid sums are float scatter-adds through
+  :func:`..core.ops.index_sum`, in the same order on every run.  The
+  packed representative argmin is an int32 ``scatter_reduce("amin")`` and
+  is deterministic.
 """
 from __future__ import annotations
 
@@ -25,7 +25,8 @@ from typing import NamedTuple
 
 import torch
 
-from ..core.ops import drop, flat_rows, lift, per_pair, scalar, take
+from ..core.ops import (drop, flat_rows, index_sum, lift, per_pair, scalar,
+                        take)
 from ..core.types import PairDescriptors, host_value
 from ..geometry.transforms import euler_angles, rotation_from_two_vecs
 
@@ -249,10 +250,10 @@ def cluster_poses(R: torch.Tensor, t: torch.Tensor, valid: torch.Tensor,
     vf = valid.to(torch.float32)[..., None]
     cnt_f = torch.clamp(counts.to(torch.float32), min=1.0)
     flat = flat_rows(labels, H)
-    tsum = torch.zeros((P * H, 3), dtype=torch.float32, device=dev) \
-        .index_add_(0, flat, (t * vf).reshape(-1, 3)).reshape(P, H, 3)
-    esum = torch.zeros((P * H, 3), dtype=torch.float32, device=dev) \
-        .index_add_(0, flat, (e * vf).reshape(-1, 3)).reshape(P, H, 3)
+    tsum = index_sum(torch.zeros((P * H, 3), dtype=torch.float32, device=dev),
+                     flat, (t * vf).reshape(-1, 3)).reshape(P, H, 3)
+    esum = index_sum(torch.zeros((P * H, 3), dtype=torch.float32, device=dev),
+                     flat, (e * vf).reshape(-1, 3)).reshape(P, H, 3)
     tmean = take(tsum / cnt_f[..., None], labels)
     emean = take(esum / cnt_f[..., None], labels)
     d = torch.sum((t - tmean) ** 2, -1) \

@@ -199,6 +199,22 @@ def test_lexsort_matches_jnp(rng):
     np.testing.assert_array_equal(got, want)
 
 
+def test_index_sum_matches_segment_sum(rng):
+    """On the CPU ``index_sum`` is ``index_add_`` (rows added in index
+    order), and both agree with ``jax.ops.segment_sum``."""
+    import jax
+    idx = rng.integers(0, 50, size=4000)
+    vals = rng.normal(size=(4000, 3)).astype(np.float32)
+    got = ops.index_sum(torch.zeros(50, 3), torch.from_numpy(idx),
+                        torch.from_numpy(vals))
+    want = torch.zeros(50, 3).index_add_(0, torch.from_numpy(idx),
+                                         torch.from_numpy(vals))
+    assert torch.equal(got, want)
+    ref = np.asarray(jax.ops.segment_sum(jnp.asarray(vals), jnp.asarray(idx),
+                                         num_segments=50))
+    np.testing.assert_allclose(got.numpy(), ref, rtol=1e-5, atol=1e-5)
+
+
 def test_port_imports_without_jax():
     code = ("import sys; import plade_tpu_torch, plade_tpu_torch.pipeline, "
             "plade_tpu_torch.core.convert; "
@@ -207,7 +223,8 @@ def test_port_imports_without_jax():
             "plade_tpu_torch.dist.mesh, plade_tpu_torch.dist.posegraph, "
             "plade_tpu_torch.cli.main, plade_tpu_torch.cli.scene, "
             "plade_tpu_torch.cli.viewer, plade_tpu_torch.io.resso, "
-            "plade_tpu_torch.io.native, plade_tpu_torch.io.vg; "
+            "plade_tpu_torch.io.native, plade_tpu_torch.io.vg, "
+            "plade_tpu_torch.dist.multihost, plade_tpu_torch.utils.timing; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "assert not any(m.startswith('plade_tpu.') or m == 'plade_tpu' "
             "for m in sys.modules), 'plade_tpu imported'; "

@@ -16,6 +16,7 @@ import pytest
 import torch
 
 import cc_grids
+from plade_tpu_torch.core import ops
 from plade_tpu_torch.kernels import cc, nn
 
 
@@ -232,3 +233,23 @@ def test_cuda_pairs_fill_the_card_before_the_references_split():
     one = nn.reference_slices(16384, 16384)
     eight = nn.reference_slices(16384, 16384, pairs=8)
     assert one > 1 and eight < one
+
+
+@pytest.mark.cuda
+def test_cuda_index_sum_is_reproducible():
+    """``ops.index_sum`` on the card: the same bits on every run (the
+    voxel grids' shape: 8 x 131072 points into 8 x 16385 cells), and the
+    float64 sums within float32 rounding."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card)")
+    g = torch.Generator().manual_seed(0)
+    idx = torch.randint(0, 8 * 16385, (8 * 131072,), generator=g).cuda()
+    vals = torch.randn(8 * 131072, 3, generator=g).cuda()
+    runs = [ops.index_sum(torch.zeros(8 * 16385, 3, device="cuda"), idx,
+                          vals) for _ in range(5)]
+    for r in runs[1:]:
+        assert torch.equal(r, runs[0])
+    want = torch.zeros(8 * 16385, 3, dtype=torch.float64).index_add_(
+        0, idx.cpu(), vals.cpu().double())
+    np.testing.assert_allclose(runs[0].cpu().numpy(), want.numpy(),
+                               rtol=1e-5, atol=1e-5)

@@ -124,6 +124,18 @@ Phases, in order; any failed check exits non-zero:
     time limit) whose every rank gathers all 8 results within 1e-4 of
     (o)'s; ``utils.timing.stage`` around device work no host read waits
     for: with ``sync=`` it covers the work's CUDA events, without it not.
+(q) the ``intra`` axis (``dist/intra.py``): ``split_queries`` with the
+    kernels over ``["cuda:0"] * 2`` and ``* 3`` (K1 at 131072 x 16384 and
+    8 x 131072 x 16384, K2 at 131072 x 16384 and 16384 x 16384, the
+    spacing's top-k and ``average_spacing`` at (o)'s B = 8 shape), each bit
+    for bit the unsplit call, one launch a part, timed beside it;
+    ``register_batch`` on (o)'s 8 pairs over ``make_mesh(devices=["cuda:0"]
+    * 2, intra=2)`` (one group: the bits of (o)'s B = 8) and ``* 4,
+    intra=2`` (two groups: the bits of (o)'s B = 4 batches), each with the
+    wall per pair, peak memory, host syncs (those of (o)) and the K1/K2/K3
+    launches by group thread and stream (K3 on home's stream, every K1/K2
+    pass in two parts, one on home's stream); the one group with
+    ``enable_icp``: the bits of (o)'s ``enable_icp`` batch, K2 twice (o)'s.
 
 The last lines are the kernels' JSON line (one row per kernel and main-path
 shape; each row's ``launches`` counts its path's run and
@@ -1203,6 +1215,29 @@ def recorded_calls(module, name, keep):
         setattr(module, name, real)
 
 
+@contextlib.contextmanager
+def kernel_calls(name, keep):
+    """Records ``keep(tensors, None)`` of every call of the K1 or K2
+    wrapper ``name`` (``kernels.nn``) made inside the ``with`` block, in
+    call order, where the wrapper checks its tensors: K2's (queries, refs),
+    K1's (queries, qnormals, refs, rnormals).  Every caller's pass ends
+    there, whatever object handed it down; the call is untouched."""
+    from plade_tpu_torch.kernels import nn
+    real = nn._check
+    seen = []
+
+    def checked(kernel, *tensors):
+        if kernel == name:
+            seen.append(keep(tensors, None))
+        return real(kernel, *tensors)
+
+    nn._check = checked
+    try:
+        yield seen
+    finally:
+        nn._check = real
+
+
 def check_register_clouds(tp, tn, sp, sn, R, t, gen, cfg, device):
     """(f) ``register_clouds`` on the raw clouds: one warm-up, three timed
     runs; extraction rounds and selected planes per cloud against the
@@ -1508,7 +1543,6 @@ def check_options(scene, cfg, step_run):
     path, the final ICP's K2 launches at ``ICP_SHAPE``)."""
     from plade_tpu_torch import pipeline
     from plade_tpu_torch.kernels import nn
-    from plade_tpu_torch.refine import icp as icp_mod
     tp, tn, sp, sn, R, t = scene
     tgt, src = step_run["clouds"]
     pad = step_run["pad"]
@@ -1517,9 +1551,9 @@ def check_options(scene, cfg, step_run):
     # (j) the final ICP: the rescore's 4 K2 launches, then icp_iters + 1
     cfg_icp = dataclasses.replace(cfg, enable_icp=True)
     reset_counts()
-    with recorded_calls(icp_mod, "nearest_neighbor",
-                        lambda a, out: (a[0].shape[-2],
-                                        a[1].shape[-2])) as shapes:
+    with kernel_calls("nearest_neighbor",
+                      lambda a, out: (a[0].shape[-2],
+                                      a[1].shape[-2])) as shapes:
         res = pipeline.register_pair_device(cfg_icp, pad)(tgt, src, 0)
         torch.cuda.synchronize()
     paths["enable_icp"] = dict(nn.LAUNCHES)
@@ -2008,8 +2042,6 @@ def check_batch(scene, cfg, per_clock: float, old_k3, step_run):
     from plade_tpu_torch.dist import mesh
     from plade_tpu_torch.extract import ransac
     from plade_tpu_torch.kernels import cc, nn
-    from plade_tpu_torch.refine import icp as icp_mod
-    from plade_tpu_torch.verify import overlap as overlap_mod
     tp, tn, sp, sn, R, t = scene
     scans, truth = scan_pairs(cfg, BATCH - 1)
     pairs = [(tp, tn, sp, sn)] + scans
@@ -2040,11 +2072,14 @@ def check_batch(scene, cfg, per_clock: float, old_k3, step_run):
         res = ptypes.RegistrationResult(*(torch.cat(f) for f in zip(*outs)))
         return res.transform.cpu().numpy(), res.success.tolist(), res
 
-    walls, peaks, syncs, results = {}, {}, {}, {}
+    walls, peaks, syncs, results, bases = {}, {}, {}, {}, {}
     for B in (1, 2, 4, BATCH):
         run(B)                                             # warm-up
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+        # what the phase holds before the runs: the peak less this is
+        # the runs' own
+        bases[B] = torch.cuda.memory_allocated()
         walls[B] = []
         for k in range(3):
             ptypes.HOST_SYNCS["count"] = 0
@@ -2060,17 +2095,19 @@ def check_batch(scene, cfg, per_clock: float, old_k3, step_run):
               f"{statistics.median(walls[B]) * 1e3 / BATCH:.1f} ms, runs "
               f"{[round(w * 1e3, 1) for w in walls[B]]} ms for {BATCH} pairs"
               f"; host syncs {syncs[B]} ({syncs[B] * B / BATCH:g} a batch); "
-              f"peak memory {peaks[B] / 2**20:.1f} MiB; {card}", flush=True)
+              f"peak memory {peaks[B] / 2**20:.1f} MiB ("
+              f"{(peaks[B] - bases[B]) / 2**20:.1f} above the "
+              f"{bases[B] / 2**20:.1f} MiB held before); {card}", flush=True)
 
     # one more B = 8 run, untimed, with every count at 0 and the kernels'
     # shapes and K3's grids recorded
     reset_counts()
-    with recorded_calls(icp_mod, "nearest_neighbor",
-                        lambda a, out: tuple(a[0].shape[:-1])
-                        + (a[1].shape[-2],)) as k2_shapes, \
-            recorded_calls(overlap_mod, "oriented_min_dist_sq",
-                           lambda a, out: tuple(a[0].shape[:-1])
-                           + (a[2].shape[-2],)) as k1_shapes, \
+    with kernel_calls("nearest_neighbor",
+                      lambda a, out: tuple(a[0].shape[:-1])
+                      + (a[1].shape[-2],)) as k2_shapes, \
+            kernel_calls("oriented_min_dist_sq",
+                         lambda a, out: tuple(a[0].shape[:-1])
+                         + (a[2].shape[-2],)) as k1_shapes, \
             recorded_calls(ransac, "close_and_label_lanes",
                            lambda a, out: (a[0].clone(), a[1])) as grids, \
             recorded_extractions(ransac) as seen:
@@ -2141,9 +2178,9 @@ def check_batch(scene, cfg, per_clock: float, old_k3, step_run):
     # the final ICP of a batch: K2 icp_iters + 1 times over all pairs
     cfg_icp = dataclasses.replace(cfg, enable_icp=True)
     reset_counts()
-    with recorded_calls(icp_mod, "nearest_neighbor",
-                        lambda a, out: tuple(a[0].shape[:-1])
-                        + (a[1].shape[-2],)) as icp_shapes:
+    with kernel_calls("nearest_neighbor",
+                      lambda a, out: tuple(a[0].shape[:-1])
+                      + (a[1].shape[-2],)) as icp_shapes:
         T_icp, ok_icp, _ = run(BATCH, cfg_icp)
     icp_launches = dict(nn.LAUNCHES)
     at_shape = sum(s == K2_BATCH_SHAPES[1] for s in icp_shapes)
@@ -2161,7 +2198,9 @@ def check_batch(scene, cfg, per_clock: float, old_k3, step_run):
         fail("; ".join(problems))
     batch_run = dict(pairs=pairs, truth=truth, pad=pad, clouds=(tgt, src),
                      T1=T1, ok1=ok1, T4=results[4][0], ok4=results[4][1],
-                     T8=T8, ok8=ok8, walls_pp=walls_pp)
+                     T8=T8, ok8=ok8, walls_pp=walls_pp, syncs=syncs,
+                     peaks=peaks, bases=bases, launches8=launches, T_icp=T_icp,
+                     ok_icp=ok_icp, icp_launches=icp_launches)
     return launches, by_shape, k3_row, batch_run
 
 
@@ -2412,9 +2451,7 @@ def check_mesh(cfg, batch_run):
     from plade_tpu_torch.dist import mesh as mesh_mod
     from plade_tpu_torch.extract import ransac
     from plade_tpu_torch.kernels import nn
-    from plade_tpu_torch.refine import icp as icp_mod
     from plade_tpu_torch.utils import timing
-    from plade_tpu_torch.verify import overlap as overlap_mod
     pairs, truth, T1, ok1 = (batch_run[k] for k in
                              ("pairs", "truth", "T1", "ok1"))
     card = gpu_info()
@@ -2455,10 +2492,10 @@ def check_mesh(cfg, batch_run):
     def stream_of(n):
         return lambda a, out: (n(a), torch.cuda.current_stream().cuda_stream)
     reset_counts()
-    with recorded_calls(icp_mod, "nearest_neighbor",
-                        stream_of(lambda a: a[0].shape[0])) as k2, \
-            recorded_calls(overlap_mod, "oriented_min_dist_sq",
-                           stream_of(lambda a: a[0].shape[0])) as k1, \
+    with kernel_calls("nearest_neighbor",
+                      stream_of(lambda a: a[0].shape[0])) as k2, \
+            kernel_calls("oriented_min_dist_sq",
+                         stream_of(lambda a: a[0].shape[0])) as k1, \
             recorded_calls(ransac, "close_and_label_lanes",
                            stream_of(lambda a: a[0].shape[0])) as k3:
         run2()
@@ -2564,6 +2601,240 @@ def check_mesh(cfg, batch_run):
         if min(paths[path].values()) < 1:
             problems.append(f"[p] {path}: a kernel was not launched: "
                             f"{paths[path]}")
+    if problems:
+        fail("; ".join(problems))
+    return paths
+
+
+#: (q)'s groups on the one card: the split kernels over 2 and 3 parts
+INTRA_PARTS = (2, 3)
+
+
+def split_kernels(nn, cfg, batch_run):
+    """(q) ``dist.intra.split_queries`` with the real kernels at the main
+    path's shapes over ``["cuda:0"] * k`` (k in ``INTRA_PARTS``): K1 at
+    131072 x 16384 and 8 x 131072 x 16384, K2 at 131072 x 16384 and 16384
+    x 16384, and ``topk_dist_sq`` / ``average_spacing`` at (o)'s B = 8
+    spacing shape (its 8 source clouds and sampled queries), each bit for
+    bit one launch (the unsplit call), one launch a part, timed beside
+    it.  Returns the problems found."""
+    from plade_tpu_torch.dist.intra import on_group, query_cuts, split_queries
+    from plade_tpu_torch.knn import bruteforce
+    problems = []
+    src = batch_run["clouds"][1]
+    seen = []
+
+    def recorded(queries, refs, *a):
+        seen.append((queries, refs))
+        return bruteforce.topk_dist_sq(queries, refs, *a)
+    # the sampled queries and the clouds of (o)'s B = 8 spacing
+    bruteforce.average_spacing(
+        src.points, src.mask, cfg.spacing_k, cfg.spacing_samples,
+        bruteforce.ONE_DEVICE._replace(topk_dist_sq=recorded))
+    (sq, spts), = seen
+    block = bruteforce.topk_block(sq, spts)
+    cases = [
+        ("K1", nn.oriented_min_dist_sq, kernel_inputs(*K1_SHAPES[0])),
+        ("K1", nn.oriented_min_dist_sq, batch_inputs(*K1_BATCH_SHAPES[0])),
+        ("K2", nn.nearest_neighbor, kernel_inputs(*K2_SHAPES[0])),
+        ("K2", nn.nearest_neighbor, kernel_inputs(*K2_SHAPES[1])),
+    ]
+    for k in INTRA_PARTS:
+        group = ["cuda:0"] * k
+        for name, kernel, (q, qn, r, rn) in cases:
+            if name == "K1":
+                def fn(*a):
+                    return nn.oriented_min_dist_sq(*a, NORMAL_COS)
+                per, shared = [q, qn], [r, rn]
+            else:
+                fn, per, shared = kernel, [q], [r]
+            want = fn(*per, *shared)
+            cuts = query_cuts(q.shape[-2], k)
+            parts = sum(hi > lo for lo, hi in zip(cuts, cuts[1:]))
+            reset_counts()
+            got = split_queries(fn, group, per, shared)
+            torch.cuda.synchronize()
+            launches = sum(nn.LAUNCHES.values())
+            same = all(torch.equal(a, b) for a, b in zip(
+                got if isinstance(got, tuple) else (got,),
+                want if isinstance(want, tuple) else (want,)))
+            ms = cuda_ms(lambda: split_queries(fn, group, per, shared))
+            one_ms = cuda_ms(lambda: fn(*per, *shared))
+            shape = tuple(q.shape[:-1]) + (r.shape[-2],)
+            print(f"[q] {name} {shape} over {k} parts on cuda:0: the bits of "
+                  f"one launch {same}; {launches} launches ({parts} parts); "
+                  f"{ms:.4f} ms split against {one_ms:.4f} ms one launch",
+                  flush=True)
+            if not same or launches != parts:
+                problems.append(f"[q] {name} {shape} over {k} parts: same "
+                                f"bits {same}, {launches} launches")
+        passes = on_group(group)
+        # the peak memory of one unsplit and one split top-k, each from
+        # what is allocated before it
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        want = bruteforce.topk_dist_sq(sq, spts, cfg.spacing_k)
+        torch.cuda.synchronize()
+        one_peak = torch.cuda.max_memory_allocated() - base
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        got = passes.topk_dist_sq(sq, spts, cfg.spacing_k)
+        torch.cuda.synchronize()
+        split_peak = torch.cuda.max_memory_allocated() - base
+        sp_want = bruteforce.average_spacing(
+            src.points, src.mask, cfg.spacing_k, cfg.spacing_samples)
+        sp_got = bruteforce.average_spacing(
+            src.points, src.mask, cfg.spacing_k, cfg.spacing_samples,
+            passes)
+        same = torch.equal(got, want) and torch.equal(sp_got, sp_want)
+        ms = cuda_ms(lambda: passes.topk_dist_sq(sq, spts, cfg.spacing_k),
+                     reps=2, warm=1)
+        one_ms = cuda_ms(lambda: bruteforce.topk_dist_sq(
+            sq, spts, cfg.spacing_k), reps=2, warm=1)
+        print(f"[q] spacing top-{cfg.spacing_k} {tuple(sq.shape[:-1])} x "
+              f"{spts.shape[-2]} (blocks of {block} queries) over {k} parts: "
+              f"the bits of the unsplit call {same} (top-k and spacing); "
+              f"{ms:.2f} ms split against {one_ms:.2f} ms; peak memory "
+              f"above its inputs {split_peak / 2**20:.1f} MiB split against "
+              f"{one_peak / 2**20:.1f} MiB", flush=True)
+        if not same:
+            problems.append(f"[q] the spacing over {k} parts differs")
+    return problems
+
+
+def check_intra(cfg, batch_run):
+    """(q) the ``intra`` axis (``dist/intra.py``, ``make_mesh(intra=)``).
+    First :func:`split_kernels`.  Then ``register_batch`` on (o)'s 8 pairs
+    over ``make_mesh(devices=["cuda:0"] * 2, intra=2)`` (one group: the
+    bits of (o)'s B = 8 batch) and ``["cuda:0"] * 4, intra=2`` (two groups
+    of 4 pairs: the bits of (o)'s B = 4 batches): one warm-up, three timed
+    runs (the wall per pair, the host syncs of the first, the peak memory),
+    then one run with every count at 0 and each K1/K2/K3 launch's thread
+    and stream recorded: in each group K3 on home's stream only, K1 and K2
+    as many launches on home's stream as on the others' (every pass split
+    in two), the same host syncs as (o), and the device memory each
+    stream holds (``torch.cuda.memory_snapshot``).
+    Last the one group with ``enable_icp`` (the final ICP's K2 split too):
+    the bits of (o)'s ``enable_icp`` batch.  Returns the launches by
+    path."""
+    import threading
+
+    from plade_tpu_torch.core import types as ptypes
+    from plade_tpu_torch.dist import intra as intra_mod
+    from plade_tpu_torch.dist import mesh as mesh_mod
+    from plade_tpu_torch.extract import ransac
+    from plade_tpu_torch.kernels import nn
+    problems = split_kernels(nn, cfg, batch_run)
+    card = gpu_info()
+    tgt, src = batch_run["clouds"]
+    paths = {}
+
+    def run(m, cfg_run=cfg):
+        res = mesh_mod.register_batch(tgt, src, range(BATCH), cfg_run, m)
+        return res.transform.numpy(), res.success.tolist()
+
+    def where(a, out):
+        return (threading.get_ident(), torch.cuda.current_stream().cuda_stream)
+
+    for path, devices, want, want_syncs in (
+            ("mesh_intra", ["cuda:0"] * 2, "8", batch_run["syncs"][BATCH]),
+            ("mesh_intra_two_groups", ["cuda:0"] * 4, "4",
+             batch_run["syncs"][4])):
+        m = mesh_mod.make_mesh(devices=devices, intra=2)
+        groups = len(m.groups)
+        run(m)                                             # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        walls = []
+        for i in range(3):
+            ptypes.HOST_SYNCS["count"] = 0
+            t0 = time.perf_counter()
+            T, ok = run(m)
+            walls.append(time.perf_counter() - t0)
+            if i == 0:
+                syncs = ptypes.HOST_SYNCS["count"]
+        peak = torch.cuda.max_memory_allocated()
+        held = {}
+        for seg in torch.cuda.memory_snapshot():
+            held[seg["stream"]] = held.get(seg["stream"], 0) \
+                + seg["total_size"]
+        reset_counts()
+        with kernel_calls("nearest_neighbor", where) as k2, \
+                kernel_calls("oriented_min_dist_sq", where) as k1, \
+                recorded_calls(ransac, "close_and_label_lanes",
+                               where) as k3:
+            run(m)
+            torch.cuda.synchronize()
+        paths[path] = dict(nn.LAUNCHES)
+        homes = {th: s for th, s in k3}
+        by = {}
+        for th, home in homes.items():
+            by[th] = {name: {"home": sum(c == (th, home) for c in calls),
+                             "others": sum(c[0] == th and c[1] != home
+                                           for c in calls)}
+                      for name, calls in (("K2", k2), ("K1", k1),
+                                          ("K3", k3))}
+        same = np.array_equal(T, batch_run["T" + want]) \
+            and ok == batch_run["ok" + want]
+        pp = statistics.median(walls) * 1e3 / BATCH
+        o_peak, o_base = (batch_run[k][int(want)] for k in ("peaks", "bases"))
+        print(f"[q] {path}: {groups} group(s) of 2 on cuda:0, "
+              f"{BATCH // groups} pairs a group: the bits of (o)'s B = "
+              f"{want} {same} (within "
+              f"{float(np.abs(T - batch_run['T' + want]).max()):.3e}); wall "
+              f"per pair (median of 3) {pp:.1f} ms, runs "
+              f"{[round(w * 1e3, 1) for w in walls]} ms for {BATCH} pairs; "
+              f"(o) B = {want}: {batch_run['walls_pp'][int(want)]:.1f} ms; "
+              f"host syncs {syncs} ((o) B = {want}: {want_syncs}); peak "
+              f"memory {peak / 2**20:.1f} MiB, {(peak - base) / 2**20:.1f} "
+              f"above the {base / 2**20:.1f} MiB held before ((o) B = "
+              f"{want}: {o_peak / 2**20:.1f} MiB, "
+              f"{(o_peak - o_base) / 2**20:.1f} above its "
+              f"{o_base / 2**20:.1f}); launches {paths[path]}; by group "
+              f"thread and stream (home, others) "
+              f"{list(by.values())}; device memory held by stream "
+              f"{sorted(round(v / 2**20, 1) for v in held.values())} MiB "
+              f"({len(held)} streams; {len(mesh_mod._STREAMS)} shard and "
+              f"{len(intra_mod._STREAMS)} helper streams drawn so far); "
+              f"{card}", flush=True)
+        if not same:
+            problems.append(f"[q] {path}: not the bits of (o)'s B = {want}")
+        if syncs != want_syncs:
+            problems.append(f"[q] {path}: host syncs {syncs}, (o) "
+                            f"{want_syncs}")
+        if len(by) != groups:
+            problems.append(f"[q] {path}: K3 on {len(by)} group threads")
+        for c in by.values():
+            if c["K3"]["others"] or not c["K3"]["home"] \
+                    or c["K2"]["home"] != cfg.rescore_icp_iters + 1 \
+                    or c["K2"]["others"] != c["K2"]["home"] \
+                    or not c["K1"]["home"] \
+                    or c["K1"]["others"] != c["K1"]["home"]:
+                problems.append(f"[q] {path}: a group's launches {c}")
+        if path == "mesh_intra":
+            for name in ("nearest_neighbor", "oriented_min_dist_sq"):
+                if paths[path][name] != 2 * batch_run["launches8"][name]:
+                    problems.append(
+                        f"[q] {path}: {name} {paths[path][name]} launches, "
+                        f"(o) B = {BATCH}: {batch_run['launches8'][name]}")
+
+    # the final ICP's K2 through the split too
+    cfg_icp = dataclasses.replace(cfg, enable_icp=True)
+    reset_counts()
+    T, ok = run(mesh_mod.make_mesh(devices=["cuda:0"] * 2, intra=2), cfg_icp)
+    paths["mesh_intra_icp"] = dict(nn.LAUNCHES)
+    same = np.array_equal(T, batch_run["T_icp"]) \
+        and ok == batch_run["ok_icp"]
+    k2_want = 2 * batch_run["icp_launches"]["nearest_neighbor"]
+    print(f"[q] mesh_intra with enable_icp: the bits of (o)'s enable_icp "
+          f"batch {same}; launches {paths['mesh_intra_icp']} (K2 "
+          f"{k2_want} expected: (o)'s {k2_want // 2}, each in two parts)",
+          flush=True)
+    if not same or paths["mesh_intra_icp"]["nearest_neighbor"] != k2_want:
+        problems.append(f"[q] enable_icp: same bits {same}, launches "
+                        f"{paths['mesh_intra_icp']}")
     if problems:
         fail("; ".join(problems))
     return paths
@@ -2730,6 +3001,9 @@ def main():
     # (p) pairs over a pairs axis: two shards on the card, the default
     # mesh, a 2-process world; utils.timing.stage around one step
     paths.update(check_mesh(cfg, batch_run))
+    # (q) one pair's nearest-neighbour passes over a group: the split
+    # kernels, two intra meshes on the card, one with enable_icp
+    paths.update(check_intra(cfg, batch_run))
     rows.append(k3_row)
     for row in rows:
         if row.get("path") == "register_batch" and "launches" not in row:

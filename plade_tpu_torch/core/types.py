@@ -101,6 +101,13 @@ class PairDescriptors(NamedTuple):
         return _mask(self.desc.shape[-2], self.count)
 
 
+class PoseSet(NamedTuple):
+    """A batch of rigid transform hypotheses."""
+    R: torch.Tensor      # (H, 3, 3) float32
+    t: torch.Tensor      # (H, 3) float32
+    valid: torch.Tensor  # (H,) bool
+
+
 class RegistrationResult(NamedTuple):
     """Output of one pair registration; see ``plade_tpu/core/types.py`` for
     the meaning of ``score``/``overlap`` and the three truncation

@@ -8,15 +8,18 @@ buffers.  Here a batch on one device is the device step of
 ``pipeline.build_register_device_fn`` over a leading pair axis: its B pairs
 run in lockstep, each kernel launched once for all of them (K1/K2 with a
 pair axis, K3 over the lanes of all 2B clouds), each host loop run to the
-slowest pair.  A :class:`Mesh` is the pairs axis: a list of devices (one
-device may stand more than once), each a shard that runs its contiguous
-part of a batch in lockstep, in a host thread of its own (the caller's,
-when one shard has pairs) and on a CUDA stream of its own.  A mesh of several processes (``dist/multihost.py``)
-adds a rank and a process group: each rank runs its own pairs on its own
-devices, and every rank gets every pair's result.  Pairs never
-communicate, so only the small ``RegistrationResult`` crosses devices and
-ranks.  The ``intra`` axis (one pair's point buffers over several devices)
-is not ported yet (ROADMAP Queue 1 step 14).
+slowest pair.  A :class:`Mesh` is the ``(pairs, intra)`` mesh: a list of
+devices (one device may stand more than once) read as groups of ``intra``
+devices.  Each group is a shard that runs its contiguous part of a batch
+in lockstep on its first device, its home, in a host thread of its own
+(the caller's, when one shard has pairs) and on a CUDA stream of its own;
+the spacing's top-k and the K1/K2 launches of its pairs split their query
+rows over the group (``dist/intra.py``), and every other stage runs on
+home.  A mesh of several processes (``dist/multihost.py``) adds a rank and
+a process group: each rank runs its own pairs on its own devices (a group
+never spans ranks), and every rank gets every pair's result.  Pairs never
+communicate, so only the small ``RegistrationResult`` crosses groups and
+ranks.
 """
 from __future__ import annotations
 
@@ -37,13 +40,22 @@ INTRA = "intra"
 
 
 class Mesh(NamedTuple):
-    """The pairs axis of devices this process runs its pairs on; ``rank``
-    and ``world_size`` place the process in a multi-process mesh (0 and 1,
-    ``group`` None, for one process)."""
+    """The devices this process runs its pairs on, read as groups of
+    ``intra`` (group ``g`` is ``devices[g * intra:(g + 1) * intra]``, its
+    first device home); ``rank`` and ``world_size`` place the process in a
+    multi-process mesh (0 and 1, ``group`` None, for one process)."""
     devices: tuple
     rank: int = 0
     world_size: int = 1
     group: object = None
+    intra: int = 1
+
+    @property
+    def groups(self) -> list[tuple]:
+        """The pairs axis: one tuple of devices a group, home first."""
+        k = self.intra
+        return [self.devices[g:g + k] for g in range(0, len(self.devices),
+                                                     k)]
 
 
 class PairOutcome(NamedTuple):
@@ -62,10 +74,13 @@ class PairOutcome(NamedTuple):
 
 def make_mesh(n_devices: int | None = None, intra: int = 1,
               devices=None) -> Mesh:
-    """A pairs axis over the first ``n_devices`` of ``devices`` (torch
-    devices or their names; one device may stand more than once), by
-    default every visible CUDA card.  Without a card the default raises
-    ``RuntimeError``, as the entry points do."""
+    """A ``(pairs, intra)`` mesh over the first ``n_devices`` of
+    ``devices`` (torch devices or their names; one device may stand more
+    than once, within a group too), by default every visible CUDA card:
+    ``n_devices // intra`` groups of ``intra`` consecutive devices.
+    Without a card the default raises ``RuntimeError``, as the entry points
+    do.  Groups have run on one card repeated (``["cuda:0"] * 2``); groups
+    of distinct cards have not been run yet."""
     if devices is None:
         _run_device("cuda")
         devices = [f"cuda:{k}" for k in range(torch.cuda.device_count())]
@@ -74,14 +89,10 @@ def make_mesh(n_devices: int | None = None, intra: int = 1,
         n_devices = len(devices)
     if not 1 <= n_devices <= len(devices):
         raise ValueError(f"n_devices={n_devices} of {len(devices)} devices")
-    if n_devices % intra != 0:
+    if intra < 1 or n_devices % intra != 0:
         raise ValueError(f"n_devices={n_devices} not divisible by "
                          f"intra={intra}")
-    if intra != 1:
-        raise NotImplementedError(
-            f"intra={intra}: one pair over several devices (the intra axis) "
-            "is not ported yet (ROADMAP Queue 1 step 14); use intra=1")
-    return Mesh(devices[:n_devices])
+    return Mesh(devices[:n_devices], intra=intra)
 
 
 def device_mesh(device=None) -> Mesh:
@@ -126,14 +137,23 @@ def _empty_result() -> RegistrationResult:
         cluster_truncated=torch.zeros(0, dtype=i32))
 
 
-def _in_shard(device: torch.device, after, fn):
+#: each shard's stream, by (device, shard): drawn once and reused, so that
+#: the caching allocator keeps a shard's blocks for its next batch (a new
+#: stream a call would allocate its whole working set anew)
+_STREAMS: dict = {}
+
+
+def _in_shard(device: torch.device, shard: int, after, fn):
     """``fn()`` in this thread on ``device``: for a card under its device
-    context and on a stream of its own that first waits for ``after`` (the
-    stream that made the inputs, or None)."""
+    context and on the stream of shard ``shard`` there, which first waits
+    for ``after`` (the stream that made the inputs, or None)."""
     if device.type != "cuda":
         return fn()
     with torch.cuda.device(device):
-        stream = torch.cuda.Stream(device)
+        stream = _STREAMS.get((device, shard))
+        if stream is None:
+            stream = _STREAMS.setdefault((device, shard),
+                                         torch.cuda.Stream(device))
         if after is not None:
             stream.wait_stream(after)
         with torch.cuda.stream(stream):
@@ -141,36 +161,38 @@ def _in_shard(device: torch.device, after, fn):
 
 
 def _register_shards(tgt_batch: Cloud, src_batch: Cloud, seeds, cfg,
-                     devices, draws) -> RegistrationResult:
-    """The batch split into contiguous shards over ``devices``, each shard
-    in lockstep in a host thread of its own (a lone shard in this thread);
-    the results on the CPU in pair order.  A shard's exception is raised
-    here once every shard has ended."""
+                     groups, draws) -> RegistrationResult:
+    """The batch split into contiguous shards over ``groups`` (tuples of
+    devices, home first), each shard in lockstep on its home with the rest
+    of its group as ``intra``, in a host thread of its own (a lone shard in
+    this thread); the results on the CPU in pair order.  A shard's
+    exception is raised here once every shard has ended."""
     B, N = tgt_batch.points.shape[:2]
     after = torch.cuda.current_stream(tgt_batch.points.device) \
         if tgt_batch.points.is_cuda else None
-    cut = _bounds(B, len(devices))
+    cut = _bounds(B, len(groups))
 
-    def shard(device, lo, hi):
-        step = register_pair_device(cfg, N, device)
+    def shard(group, lo, hi):
+        step = register_pair_device(cfg, N, group[0], group[1:])
         res = step(Cloud(*(x[lo:hi] for x in tgt_batch)),
                    Cloud(*(x[lo:hi] for x in src_batch)), seeds[lo:hi],
                    None if draws is None else draws[2 * lo:2 * hi])
         # the copy to the host waits for the shard's stream
         return RegistrationResult(*(x.cpu() for x in res))
 
-    jobs = [(d, lo, hi) for d, lo, hi in zip(devices, cut, cut[1:])
-            if hi > lo]
+    jobs = [(k, g, lo, hi) for k, (g, lo, hi)
+            in enumerate(zip(groups, cut, cut[1:])) if hi > lo]
     if not jobs:
         return _empty_result()
     if len(jobs) == 1:
         # in this thread, where the caller's profiler sees its ranges
-        (d, lo, hi), = jobs
-        return _in_shard(d, after, functools.partial(shard, d, lo, hi))
+        (k, g, lo, hi), = jobs
+        return _in_shard(g[0], k, after,
+                         functools.partial(shard, g, lo, hi))
     with ThreadPoolExecutor(max_workers=len(jobs)) as pool:
-        futures = [pool.submit(_in_shard, d, after,
-                               functools.partial(shard, d, lo, hi))
-                   for d, lo, hi in jobs]
+        futures = [pool.submit(_in_shard, g[0], k, after,
+                               functools.partial(shard, g, lo, hi))
+                   for k, g, lo, hi in jobs]
     parts = [f.result() for f in futures]
     return RegistrationResult(*(torch.cat(f) for f in zip(*parts)))
 
@@ -195,12 +217,12 @@ def register_batch(tgt_batch: Cloud, src_batch: Cloud, seeds,
     With ``device``, the batch runs in lockstep on that one device, and the
     results are tensors there.  Otherwise it runs on ``mesh`` (by default
     :func:`make_mesh`, every visible card): split into contiguous shards
-    over the mesh's devices (sizes differing by at most 1; a shard of 0
-    pairs launches nothing), each in lockstep, and the results are CPU
-    tensors in pair order.  On a mesh of several processes the batch is
-    this rank's pairs (:func:`multihost.local_batch_to_global`) and every
-    rank returns every rank's results, in rank order.  Each pair's result
-    is what the step gives that pair alone."""
+    over the mesh's groups (sizes differing by at most 1; a shard of 0
+    pairs launches nothing), each in lockstep on its group, and the results
+    are CPU tensors in pair order.  On a mesh of several processes the
+    batch is this rank's pairs (:func:`multihost.local_batch_to_global`)
+    and every rank returns every rank's results, in rank order.  Each
+    pair's result is what the step gives that pair alone."""
     seeds = [int(s) for s in seeds]
     B = tgt_batch.points.shape[0]
     if len(seeds) != B or (draws is not None and len(draws) != 2 * B):
@@ -213,7 +235,7 @@ def register_batch(tgt_batch: Cloud, src_batch: Cloud, seeds,
         return step(tgt_batch, src_batch, seeds, draws)
     if mesh is None:
         mesh = make_mesh()
-    res = _register_shards(tgt_batch, src_batch, seeds, cfg, mesh.devices,
+    res = _register_shards(tgt_batch, src_batch, seeds, cfg, mesh.groups,
                            draws)
     return _gather(res, mesh) if mesh.world_size > 1 else res
 
@@ -264,12 +286,12 @@ def register_array_pairs(cloud_pairs, cfg: PladeConfig, seed: int = 0,
     pad = _pad_size(max_n, maximum=cfg.max_points)
     # the padded clouds: on the device, or on the host for the shards
     home = device or torch.device("cpu")
-    D = len(mesh.devices) if mesh is not None else 1
+    D = len(mesh.groups) if mesh is not None else 1
     W = mesh.world_size if mesh is not None else 1
     outcomes = []
     for start in range(0, len(capped), batch_pairs * D * W):
         chunk = capped[start:start + batch_pairs * D * W]
-        # this rank's part: its devices' shards of the chunk
+        # this rank's part: its groups' shards of the chunk
         cut = _bounds(len(chunk), D * W)
         r = mesh.rank if mesh is not None else 0
         lo, hi = cut[r * D], cut[(r + 1) * D]

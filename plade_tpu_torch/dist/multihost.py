@@ -14,6 +14,7 @@ sets the environment variables read below):
     from plade_tpu_torch.dist import mesh as mesh_mod, multihost
     multihost.initialize()                 # torch.distributed over TCP
     mesh = multihost.global_mesh()         # this rank's cards, rank, world
+                                           # (intra=k: groups of k cards)
     batch, offsets = multihost.local_batch_to_global(mesh, tgt, src, seeds)
     results = mesh_mod.register_batch(*batch, cfg, mesh)   # every pair
 """
@@ -61,11 +62,14 @@ def initialize(coordinator_address: str | None = None,
 
 
 def global_mesh(intra: int = 1, devices=None) -> mesh_mod.Mesh:
-    """This process's part of the pairs axis, with its rank and the world
-    size (rank 0 of 1 without a process group).  ``devices`` defaults to
-    this process's cards: under torchrun with ``LOCAL_WORLD_SIZE`` dividing
-    the visible cards, ``LOCAL_RANK``'s share of them (one card with one
-    process a card), else every visible card."""
+    """This process's part of the ``(pairs, intra)`` mesh, with its rank
+    and the world size (rank 0 of 1 without a process group): its devices
+    in groups of ``intra``.  A group never spans ranks, so this process's
+    device count must be a multiple of ``intra`` (``ValueError``
+    otherwise).  ``devices`` defaults to this process's cards: under
+    torchrun with ``LOCAL_WORLD_SIZE`` dividing the visible cards,
+    ``LOCAL_RANK``'s share of them (one card with one process a card), else
+    every visible card."""
     if devices is None:
         _run_device("cuda")                   # raises without a card
         n = torch.cuda.device_count()
@@ -74,6 +78,11 @@ def global_mesh(intra: int = 1, devices=None) -> mesh_mod.Mesh:
         if local is not None and per and n % per == 0:
             k = n // per
             devices = [f"cuda:{int(local) * k + j}" for j in range(k)]
+        else:
+            devices = [f"cuda:{j}" for j in range(n)]
+    if len(devices) % intra != 0:
+        raise ValueError(f"intra={intra}: a group never spans ranks, and "
+                         f"this rank has {len(devices)} devices")
     mesh = mesh_mod.make_mesh(intra=intra, devices=devices)
     if not dist.is_initialized():
         return mesh

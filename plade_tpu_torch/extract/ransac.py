@@ -818,8 +818,19 @@ def build_extract_fn(cfg: PladeConfig, num_points: int,
 
 
 @functools.lru_cache(maxsize=8)
+def make_extractor(cfg: PladeConfig, num_points: int,
+                   max_extract: int | None = None):
+    """The standalone extraction for a fixed cloud size,
+    ``extract(points, normals, count, floor_support, generator=None,
+    draws=None, init_support=None) -> (PlaneSet, ExtractStats)`` of
+    :func:`build_extract_fn`, cached per config, cloud size and
+    ``max_extract`` (the planes' buffer, ``cfg.max_planes`` by default)."""
+    return build_extract_fn(cfg, num_points, max_extract)
+
+
 def _cached_extractor(cfg: PladeConfig, num_points: int):
-    return build_extract_fn(cfg, num_points, max_extract=64)
+    """The pipeline's extractor: up to 64 planes, selected afterwards."""
+    return make_extractor(cfg, num_points, 64)
 
 
 def auto_extract(points, normals, count, cfg: PladeConfig, num_points: int,
@@ -893,6 +904,15 @@ def select_planes_device(planes: PlaneSet, cfg: PladeConfig) -> PlaneSet:
                          th[_first_true(okth)[..., None]],
                          cfg.ransac_min_allowed_support)
     return _keep_largest(planes, valid & (sizes >= chosen), cfg)
+
+
+def select_planes(planes: PlaneSet, cfg: PladeConfig) -> PlaneSet:
+    """The reference's host-side ``select_planes`` on one cloud's PlaneSet
+    of numpy arrays or tensors: :func:`select_planes_device` on them as
+    tensors, the selected PlaneSet on the device of ``planes.coeffs`` (the
+    CPU for numpy)."""
+    return select_planes_device(
+        PlaneSet(*(torch.as_tensor(x) for x in planes)), cfg)
 
 
 def select_planes_pinned(planes: PlaneSet, cfg: PladeConfig) -> PlaneSet:

@@ -1,6 +1,7 @@
 """Line geometry (``plade_tpu/geometry/lines.py``): plane-plane
-intersections, line-line closest points, projection onto a plane.  All
-functions broadcast over leading batch dimensions."""
+intersections, line-line closest points and intersection, point-line and
+point-segment distances, projection onto a plane.  All functions broadcast
+over leading batch dimensions."""
 from __future__ import annotations
 
 import torch
@@ -49,6 +50,35 @@ def closest_points_two_lines(u1, p1, u2, p2):
     point2 = p2 + t[..., None] * u2n
     dist = torch.linalg.vector_norm(point1 - point2, dim=-1)
     return point1, point2, dist
+
+
+def intersect_two_lines(u1, p1, u2, p2):
+    """Least-squares intersection point of two 3-D lines (the midpoint of
+    their closest-point segment; ComputeIntersectionPointOf23DLine,
+    util.cpp:1461-1500), and whether the lines are not near-parallel
+    (|u1.u2| <= 0.9999, util.cpp:1464)."""
+    u1n = normalize(u1)
+    u2n = normalize(u2)
+    valid = torch.abs(torch.sum(u1n * u2n, dim=-1)) <= 0.9999
+    q1, q2, _ = closest_points_two_lines(u1n, p1, u2n, p2)
+    return 0.5 * (q1 + q2), valid
+
+
+def point_line_distance(point, u, p):
+    """Distance from point(s) to the line (p + t u)."""
+    un = normalize(u)
+    w = point - p
+    along = torch.sum(w * un, dim=-1, keepdim=True) * un
+    return torch.linalg.vector_norm(w - along, dim=-1)
+
+
+def point_segment_distance(point, a, b):
+    """Distance from point(s) to the segment [a, b]."""
+    ab = b - a
+    denom = torch.clamp(torch.sum(ab * ab, dim=-1, keepdim=True), min=_EPS)
+    t = torch.clamp(torch.sum((point - a) * ab, dim=-1, keepdim=True)
+                    / denom, 0.0, 1.0)
+    return torch.linalg.vector_norm(point - (a + t * ab), dim=-1)
 
 
 def project_points_to_plane(points, coeffs):

@@ -1,5 +1,6 @@
 """SE(3) utilities (``plade_tpu/geometry/transforms.py``): closed-form
-rotation from two direction pairs and Euler angles."""
+rotation from two direction pairs, Euler angles, rigid transforms and the
+Kabsch fit."""
 from __future__ import annotations
 
 import torch
@@ -40,3 +41,27 @@ def euler_angles(R: torch.Tensor):
     pitch = torch.asin(-torch.clamp(R[..., 2, 0], -1.0, 1.0))
     yaw = torch.atan2(R[..., 1, 0], R[..., 0, 0])
     return roll, pitch, yaw
+
+
+def apply_rigid(R: torch.Tensor, t: torch.Tensor,
+                points: torch.Tensor) -> torch.Tensor:
+    """x -> R x + t.  R: (..., 3, 3), t: (..., 3), points: (..., N, 3)."""
+    return torch.einsum("...ij,...nj->...ni", R, points) + t[..., None, :]
+
+
+def kabsch(src: torch.Tensor, dst: torch.Tensor, weights=None):
+    """Weighted least-squares rigid transform src -> dst by SVD (Kabsch):
+    src/dst (N, 3), ``weights`` (N,) (all ones by default).  Returns (R
+    (3, 3), t (3,))."""
+    if weights is None:
+        weights = torch.ones(src.shape[0], dtype=src.dtype,
+                             device=src.device)
+    w = weights / torch.clamp(torch.sum(weights), min=_EPS)
+    sc = torch.sum(src * w[:, None], dim=0)
+    dc = torch.sum(dst * w[:, None], dim=0)
+    H = (src - sc).T @ ((dst - dc) * w[:, None])
+    U, _, Vt = torch.linalg.svd(H)
+    d = torch.sign(torch.linalg.det(Vt.T @ U.T))
+    S = torch.diag(torch.stack([torch.ones_like(d), torch.ones_like(d), d]))
+    R = Vt.T @ S @ U.T
+    return R, dc - R @ sc

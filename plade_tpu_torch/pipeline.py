@@ -53,8 +53,9 @@ from .descriptors.pairlines import degraded_descriptors, pair_descriptors
 from .extract import ransac
 from .geometry.lines import intersect_planes, project_points_to_plane
 from .geometry.obb import compute_obb
+from .dist.intra import on_group
 from .geometry.voxel import voxel_downsample, voxel_downsample_by_plane
-from .knn.bruteforce import average_spacing
+from .knn.bruteforce import ONE_DEVICE, NNPasses, average_spacing
 from .match import matching
 from .refine.icp import refine_icp
 from .verify import overlap as overlap_mod
@@ -228,14 +229,16 @@ def prepare_cloud(cloud: Cloud, planes: PlaneSet, dsd,
 
 
 def register_pair(tgt: PreparedCloud, src: PreparedCloud, dparams,
-                  cfg: PladeConfig) -> RegistrationResult:
+                  cfg: PladeConfig,
+                  nn: NNPasses = ONE_DEVICE) -> RegistrationResult:
     """Register two prepared clouds; ``dparams`` = (scale,
     length_threshold, down_sample_distance) as float32 0-d tensors.  With
     a leading axis of P pairs on both prepared clouds (``dparams`` then
     (P,) tensors or numbers) every stage runs once for all pairs and the
     result has the axis too: the reference's ``jax.vmap`` of its pair
     registration, each host loop run to the slowest pair with the finished
-    pairs frozen."""
+    pairs frozen.  K1 and K2 (overlap phase 2, the rescore, the final ICP)
+    are ``nn``'s."""
     single = tgt.ds.points.dim() == 2
     if single:
         tgt, src = lift((tgt, src))
@@ -350,7 +353,7 @@ def register_pair(tgt: PreparedCloud, src: PreparedCloud, dparams,
             plane_frac=plane_frac, face_weight=cfg.face_matches_weight,
             exact_k=cfg.overlap_exact_k, grid=cfg.overlap_grid,
             src_normals=src.ds.normals, tgt_normals=tgt.ds.normals,
-            normal_cos=cfg.overlap_normal_cos)
+            normal_cos=cfg.overlap_normal_cos, nn=nn)
         fw = cfg.face_matches_weight
         score = fw * plane_frac + (1.0 - fw) * ov
         score = torch.where(sel_valid, score, ninf)
@@ -393,14 +396,15 @@ def register_pair(tgt: PreparedCloud, src: PreparedCloud, dparams,
             Rr, tr, _, _ = refine_icp(
                 take(sR, top_idx), take(st, top_idx),
                 src.ds.points[:, ::icp_sub], src.ds.mask[:, ::icp_sub],
-                tgt.ds.points, tgt.ds.normals, dsd, cfg.rescore_icp_iters)
+                tgt.ds.points, tgt.ds.normals, dsd, cfg.rescore_icp_iters,
+                nn)
             r_fine = cfg.rescore_radius_factor * dsd / cfg.downsample_factor
             smask = src.ds.mask
             tmask = tgt.ds.mask
             cnt_f = overlap_mod.exact_overlap_counts(
                 Rr, tr, src.ds.points, smask, tgt.ds.points, r_fine * r_fine,
                 src_normals=src.ds.normals, tgt_normals=tgt.ds.normals,
-                normal_cos=cfg.overlap_normal_cos)
+                normal_cos=cfg.overlap_normal_cos, nn=nn)
             # co-visible normalization: aligned counts over the source points
             # inside the target's dilated occupancy at length_threshold
             bm_cv, org_cv, cell_cv = overlap_mod.build_occupancy(
@@ -440,7 +444,8 @@ def register_pair(tgt: PreparedCloud, src: PreparedCloud, dparams,
             max_corr = cfg.icp_max_corr_factor * dsd / cfg.downsample_factor
             Ri, ti, _, _ = refine_icp(
                 Rb[:, None], tb[:, None], src.ds.points, src.ds.mask,
-                tgt.ds.points, tgt.ds.normals, max_corr, cfg.icp_iters)
+                tgt.ds.points, tgt.ds.normals, max_corr, cfg.icp_iters,
+                nn)
             Rb = torch.where(success[:, None, None], Ri[:, 0], Rb)
             tb = torch.where(success[:, None], ti[:, 0], tb)
     zero = torch.zeros((), dtype=torch.float32, device=dev)
@@ -588,7 +593,8 @@ def _generators(seed: int, device) -> list:
 
 
 def build_register_device_fn(cfg: PladeConfig, num_points: int,
-                             with_stats: bool = False, device=None):
+                             with_stats: bool = False, device=None,
+                             intra=()):
     """The full-pipeline step for clouds padded to ``num_points`` rows, on
     ``device`` (by default CUDA): the reference's
     ``build_register_device_fn`` (the core ``registration`` overload,
@@ -610,8 +616,16 @@ def build_register_device_fn(cfg: PladeConfig, num_points: int,
     stay on the device, one per pair; the registration runs whether or not
     both clouds have ``min_planes`` planes, and a pair's result is masked
     to identity (``success`` False) when not, the other pairs unaffected.
-    No target/source swap and no cap: the caller pads."""
+    No target/source swap and no cap: the caller pads.
+
+    ``device`` is the home of the pairs' group and ``intra`` lists the
+    group's other devices (``()``: none; a device may repeat): the spacing's
+    top-k and every K1 and K2 launch split their query rows over the group
+    (``dist/intra.on_group``), and every other stage runs on ``device``.
+    The result is the one-device step's, bit for bit.  Groups of distinct
+    cards have not been run yet."""
     device = _run_device(device)
+    nn = on_group([device, *(_run_device(d) for d in intra)])
 
     def step(tgt_cloud: Cloud, src_cloud: Cloud, seed, draws=None):
         single = tgt_cloud.points.dim() == 2
@@ -640,7 +654,7 @@ def build_register_device_fn(cfg: PladeConfig, num_points: int,
         # (plade.cpp:41-56), float32 on the device
         with _stage("spacing"):
             sp = average_spacing(clouds.points[B:], clouds.mask[B:],
-                                 cfg.spacing_k, cfg.spacing_samples)
+                                 cfg.spacing_k, cfg.spacing_samples, nn)
         dsd = cfg.downsample_factor * sp
         lt = cfg.length_factor * sp
         scale = lt / math.cos(math.pi / 2 - cfg.angle_threshold)
@@ -648,7 +662,7 @@ def build_register_device_fn(cfg: PladeConfig, num_points: int,
             prep = prepare_cloud(clouds, planes, torch.cat([dsd, dsd]), cfg)
         res = register_pair(tree_map(lambda x: x[:B], prep),
                             tree_map(lambda x: x[B:], prep),
-                            (scale, lt, dsd), cfg)
+                            (scale, lt, dsd), cfg, nn)
         success = res.success & enough
         zero = torch.zeros((), dtype=torch.float32, device=device)
         out = RegistrationResult(
@@ -672,11 +686,13 @@ def build_register_device_fn(cfg: PladeConfig, num_points: int,
 
 
 @functools.lru_cache(maxsize=8)
-def register_pair_device(cfg: PladeConfig, num_points: int, device=None):
+def register_pair_device(cfg: PladeConfig, num_points: int, device=None,
+                         intra=()):
     """The device step of :func:`build_register_device_fn`, cached per
-    config, cloud size and device: one pair, or a batch of pairs in
-    lockstep."""
-    return build_register_device_fn(cfg, num_points, device=device)
+    config, cloud size, device and the group's other devices (``intra``, a
+    tuple): one pair, or a batch of pairs in lockstep."""
+    return build_register_device_fn(cfg, num_points, device=device,
+                                    intra=intra)
 
 
 def register_clouds(tgt_points, tgt_normals, src_points, src_normals,

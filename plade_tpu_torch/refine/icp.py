@@ -15,7 +15,7 @@ import torch
 
 from ..core.ops import drop, lift, per_pair, take
 from ..geometry.transforms import cross
-from ..knn.bruteforce import nearest_neighbor
+from ..knn.bruteforce import ONE_DEVICE, NNPasses
 
 
 def _orthonormalize(R: torch.Tensor) -> torch.Tensor:
@@ -36,21 +36,22 @@ def _skew(w):
     ], -2)
 
 
-def _correspond(R, t, src_points, tgt_points):
+def _correspond(R, t, src_points, tgt_points, nn: NNPasses):
     """Transformed sources (P, B, S, 3) and, per point, the squared
     distance and index of its nearest target point (P, B, S): one K2 launch
-    for all P pairs' B poses, each pair against its own target."""
+    of ``nn`` for all P pairs' B poses, each pair against its own
+    target."""
     P, B = R.shape[:2]
     S = src_points.shape[1]
     q = torch.einsum("...bij,...sj->...bsi", R, src_points) \
         + t[:, :, None, :]
-    d2, idx = nearest_neighbor(q.reshape(P, B * S, 3).contiguous(),
-                               tgt_points)
+    d2, idx = nn.nearest_neighbor(q.reshape(P, B * S, 3).contiguous(),
+                                  tgt_points)
     return q, d2.reshape(P, B, S), idx.reshape(P, B, S).to(torch.int64)
 
 
 def refine_icp(R0, t0, src_points, src_mask, tgt_points, tgt_normals,
-               max_corr, iters: int = 20):
+               max_corr, iters: int = 20, nn: NNPasses = ONE_DEVICE):
     """Refine poses so that R s + t aligns src onto tgt.
 
     R0: (B, 3, 3), t0: (B, 3); src_points: (S, 3) BIG-padded;
@@ -58,7 +59,7 @@ def refine_icp(R0, t0, src_points, src_mask, tgt_points, tgt_normals,
     Returns (R (B,3,3), t (B,3), rmse (B,), inlier_count (B,)).  With a
     leading axis of P pairs on every input (``max_corr`` a number or (P,))
     every output has it too, and each nearest-neighbour pass is one K2
-    launch for all pairs and poses."""
+    launch of ``nn`` for all pairs and poses."""
     single = R0.dim() == 3
     if single:
         R0, t0, src_points, src_mask, tgt_points, tgt_normals = lift(
@@ -70,7 +71,7 @@ def refine_icp(R0, t0, src_points, src_mask, tgt_points, tgt_normals,
     eye6 = torch.eye(6, dtype=torch.float32, device=R0.device)
     R, t = R0, t0
     for _ in range(iters):
-        q, d2, idx = _correspond(R, t, src_points, tgt_points)
+        q, d2, idx = _correspond(R, t, src_points, tgt_points, nn)
         valid = src_mask[:, None, :] & (d2 <= max_corr2)
         nq = take(tgt_normals, idx)                         # (P, B, S, 3)
         pq = take(tgt_points, idx)
@@ -87,7 +88,7 @@ def refine_icp(R0, t0, src_points, src_mask, tgt_points, tgt_normals,
         R, t = (_orthonormalize(dR @ R),
                 torch.einsum("...bij,...bj->...bi", dR, t) + dt)
 
-    q, d2, idx = _correspond(R, t, src_points, tgt_points)
+    q, d2, idx = _correspond(R, t, src_points, tgt_points, nn)
     valid = src_mask[:, None, :] & (d2 <= max_corr2)
     nq = take(tgt_normals, idx)
     r = torch.sum(nq * (q - take(tgt_points, idx)), dim=-1)

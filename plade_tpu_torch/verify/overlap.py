@@ -15,7 +15,7 @@ import torch
 
 from ..core.ops import drop, flat_rows, lift, per_pair, take
 from ..core.types import host_value
-from ..kernels.nn import min_dist_sq, oriented_min_dist_sq
+from ..knn.bruteforce import ONE_DEVICE, NNPasses
 
 
 def build_occupancy(tgt_points, tmask, radius, grid: int = 256,
@@ -84,10 +84,11 @@ def _unit(v):
 
 def exact_overlap_counts(R, t, src_points, smask, tgt_points, r2,
                          src_normals=None, tgt_normals=None,
-                         normal_cos: float = 0.0):
+                         normal_cos: float = 0.0,
+                         nn: NNPasses = ONE_DEVICE):
     """Exact per-candidate inlier counts, R: (K,3,3), t: (K,3), or with a
     leading axis of P pairs (``r2`` a number or (P,)).  All K transformed
-    source clouds of every pair go to the kernel as one launch; with
+    source clouds of every pair go to ``nn``'s kernel as one launch; with
     ``normal_cos > 0`` a hit also needs a normal that agrees (K1),
     otherwise it is position-only (K2)."""
     single = R.dim() == 3
@@ -102,11 +103,11 @@ def exact_overlap_counts(R, t, src_points, smask, tgt_points, r2,
             and tgt_normals is not None:
         qn = torch.einsum("...kij,...sj->...ksi", R, _unit(src_normals)) \
             .reshape(P, K * S, 3).contiguous()
-        d2 = oriented_min_dist_sq(q, qn, tgt_points.contiguous(),
-                                  _unit(tgt_normals).contiguous(),
-                                  normal_cos).reshape(P, K, S)
+        d2 = nn.oriented_min_dist_sq(q, qn, tgt_points.contiguous(),
+                                     _unit(tgt_normals).contiguous(),
+                                     normal_cos).reshape(P, K, S)
     else:
-        d2 = min_dist_sq(q, tgt_points.contiguous()).reshape(P, K, S)
+        d2 = nn.min_dist_sq(q, tgt_points.contiguous()).reshape(P, K, S)
     r2 = per_pair(r2, P, R.device)[:, None, None]
     counts = torch.sum(((d2 <= r2) & smask[:, None, :]).to(torch.int32),
                        dim=-1)
@@ -118,7 +119,8 @@ def overlap_scores(R, t, cand_valid, src_points, src_count,
                    plane_frac=None, face_weight: float = 0.2,
                    exact_k: int = 16, grid: int = 256,
                    src_normals=None, tgt_normals=None,
-                   normal_cos: float = 0.0):
+                   normal_cos: float = 0.0,
+                   nn: NNPasses = ONE_DEVICE):
     """((C,) overlap ratios with an exact final argmax, (C,) phase-1
     ratios): phase 1 bounds every candidate's combined score
     ``face_weight * plane_frac + (1 - face_weight) * overlap`` from above,
@@ -132,7 +134,8 @@ def overlap_scores(R, t, cand_valid, src_points, src_count,
     loop runs while any pair can still improve; a pair that cannot is
     frozen, as the reference's vmapped ``while_loop`` freezes it: later
     chunks write nothing of it (their exact overlaps, which its own run
-    leaves at 0, could move an argmax tie)."""
+    leaves at 0, could move an argmax tie).  Phase 2 runs
+    ``nn``'s passes (:func:`exact_overlap_counts`)."""
     single = R.dim() == 3
     if single:
         (R, t, cand_valid, src_points, src_count, tgt_points, tgt_count,
@@ -184,7 +187,7 @@ def overlap_scores(R, t, cand_valid, src_points, src_count,
                                      smask, tgt_points, r * r,
                                      src_normals=src_normals,
                                      tgt_normals=tgt_normals,
-                                     normal_cos=normal_cos)
+                                     normal_cos=normal_cos, nn=nn)
         ovr = exact.to(torch.float32) / denom
         valid_sel = torch.gather(cand_valid, 1, sel)
         upd = torch.where(valid_sel, ovr, 0.0)

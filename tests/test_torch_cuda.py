@@ -253,3 +253,72 @@ def test_cuda_index_sum_is_reproducible():
         0, idx.cpu(), vals.cpu().double())
     np.testing.assert_allclose(runs[0].cpu().numpy(), want.numpy(),
                                rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [2, 3])
+@pytest.mark.parametrize("P,Q,T", [(1, 131071, 16383), (3, 4097, 20000),
+                                   (2, 1, 16384)])
+def test_cuda_split_queries_equal_one_launch(k, P, Q, T):
+    """K1, K2 and the spacing's top-k split over a group of ``k`` parts on
+    one card (``dist/intra.split_queries``, each part on a stream of its
+    own): bit for bit one launch, every non-empty part one launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card)")
+    from plade_tpu_torch.dist import intra
+    from plade_tpu_torch.dist.intra import query_cuts, split_queries
+    from plade_tpu_torch.knn.bruteforce import topk_dist_sq
+    q, qn, r, rn = _pair_inputs(P, Q, T)
+    group = ["cuda:0"] * k
+    d, i = nn.nearest_neighbor(q, r)
+    o = nn.oriented_min_dist_sq(q, qn, r, rn, 0.5)
+    s = topk_dist_sq(q, r, 6)
+    cuts = query_cuts(Q, k)
+    parts = sum(hi > lo for lo, hi in zip(cuts, cuts[1:]))
+    before = dict(nn.LAUNCHES)
+    ds, is_ = split_queries(nn.nearest_neighbor, group, [q], [r])
+    os_ = split_queries(lambda *a: nn.oriented_min_dist_sq(*a, 0.5), group,
+                        [q, qn], [r, rn])
+    ss = intra.on_group(group).topk_dist_sq(q, r, 6)
+    torch.cuda.synchronize()
+    assert nn.LAUNCHES["nearest_neighbor"] \
+        == before["nearest_neighbor"] + parts
+    assert nn.LAUNCHES["oriented_min_dist_sq"] \
+        == before["oriented_min_dist_sq"] + parts
+    assert torch.equal(ds, d) and torch.equal(is_, i)
+    assert torch.equal(os_, o)
+    assert torch.equal(ss, s)
+    # the helper streams are drawn once and reused
+    streams = dict(intra._STREAMS)
+    again = split_queries(nn.nearest_neighbor, group, [q], [r])
+    torch.cuda.synchronize()
+    assert intra._STREAMS == streams
+    assert torch.equal(again[0], d) and torch.equal(again[1], i)
+
+
+@pytest.mark.cuda
+def test_cuda_split_queries_over_two_cards():
+    """K1, K2 and the spacing's top-k split over two distinct cards (the
+    parts copied card to card): bit for bit one launch on cuda:0, one
+    launch a card."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    from plade_tpu_torch.dist.intra import on_group
+    from plade_tpu_torch.knn.bruteforce import topk_dist_sq
+    q, qn, r, rn = _pair_inputs(2, 40961, 16384)
+    d, i = nn.nearest_neighbor(q, r)
+    o = nn.oriented_min_dist_sq(q, qn, r, rn, 0.5)
+    s = topk_dist_sq(q, r, 6)
+    passes = on_group(["cuda:0", "cuda:1"])
+    before = dict(nn.LAUNCHES)
+    ds, is_ = passes.nearest_neighbor(q, r)
+    os_ = passes.oriented_min_dist_sq(q, qn, r, rn, 0.5)
+    ss = passes.topk_dist_sq(q, r, 6)
+    torch.cuda.synchronize("cuda:0")
+    torch.cuda.synchronize("cuda:1")
+    assert nn.LAUNCHES["nearest_neighbor"] == before["nearest_neighbor"] + 2
+    assert nn.LAUNCHES["oriented_min_dist_sq"] \
+        == before["oriented_min_dist_sq"] + 2
+    assert ds.device == q.device and ss.device == q.device
+    assert torch.equal(ds, d) and torch.equal(is_, i)
+    assert torch.equal(os_, o) and torch.equal(ss, s)

@@ -3,7 +3,8 @@
 against the reference's sharded ``register_batch``, on the CPU.
 
 (a) ``make_mesh``: every visible card by default (none raises), devices
-    that repeat, the ``n_devices % intra`` check, ``intra > 1`` not ported.
+    that repeat, the ``n_devices % intra`` check, ``intra > 1`` groups
+    (``tests/test_torch_intra.py`` runs them).
 (b) ``register_batch`` on 2, 3 and 4 CPU shards (4 pairs split 2/2 and
     2/1/1, 3 pairs 1/1/1/0 with an empty shard): bit for bit the
     one-device call's results, in pair order, on the CPU; a shard's
@@ -112,8 +113,9 @@ def test_make_mesh_devices_and_intra():
     assert mesh.device_mesh("cpu").devices == (torch.device("cpu"),)
     with pytest.raises(ValueError, match="not divisible"):
         mesh.make_mesh(3, intra=2, devices=["cpu"] * 4)
-    with pytest.raises(NotImplementedError, match="intra axis"):
-        mesh.make_mesh(4, intra=2, devices=["cpu"] * 4)
+    m = mesh.make_mesh(4, intra=2, devices=["cpu"] * 4)
+    assert m.intra == 2
+    assert m.groups == [(torch.device("cpu"),) * 2] * 2
     with pytest.raises(ValueError):
         mesh.make_mesh(5, devices=["cpu"] * 4)
     assert (mesh.PAIRS, mesh.INTRA) == (jmesh.PAIRS, jmesh.INTRA)
@@ -133,7 +135,7 @@ def test_mesh_equals_one_device(pairs, one_device, shards, n):
 def test_shard_exception_reaches_the_caller(pairs, monkeypatch):
     ran = []
 
-    def fake(cfg, num_points, device):
+    def fake(cfg, num_points, device, intra=()):
         def step(tgt, src, seeds, draws=None):
             ran.append(list(seeds))
             if 2 in seeds:
@@ -180,7 +182,7 @@ def test_host_syncs_of_shards_add_up(pairs):
 def test_lone_shard_runs_in_the_callers_thread(pairs, monkeypatch):
     threads = []
 
-    def fake(cfg, num_points, device):
+    def fake(cfg, num_points, device, intra=()):
         def step(tgt, src, seeds, draws=None):
             threads.append(threading.current_thread())
             return mesh._empty_result()

@@ -136,12 +136,28 @@ Phases, in order; any failed check exits non-zero:
     launches by group thread and stream (K3 on home's stream, every K1/K2
     pass in two parts, one on home's stream); the one group with
     ``enable_icp``: the bits of (o)'s ``enable_icp`` batch, K2 twice (o)'s.
+(r) the evaluation suite (``python -m plade_tpu_torch.tools.run_eval``'s
+    work, in this process): its 8 scenes of 60000-point scans, 41
+    consecutive pairs x 3 repeats (seed ``1000 * rep``, odd repeats in
+    reverse pair order), each scene one lockstep batch through
+    ``evaluate_scene(device_batch=True)`` at the default ``PladeConfig()``:
+    per scene the recall of each repeat, RMSE, s/pair, peak memory, the
+    K1/K2/K3 launches with their shapes and lanes and the truncation
+    counters summed over its pairs (each failed pair and each nonzero
+    counter printed); fails on an exception, a kernel not launched in a
+    scene, a transform not finite, or an overall recall below the reference
+    binary's (``REF_EVAL.json``, 0.561).  Every pair's result goes to
+    ``chiprun_out/eval_smoke.{md,json}``.  Then K1/K2 at the shapes of the
+    suite's largest batch (``floor_long``, 7 pairs) as in (b) and K3 on the
+    grids of its first repeat as in (f).  The script's time before and
+    after (r) is printed.
 
 The last lines are the kernels' JSON line (one row per kernel and main-path
 shape; each row's ``launches`` counts its path's run and
 ``launches_by_path`` every path's; the batched rows (``"path":
 "register_batch"``) count their shape's launches in (o)'s B = 8 run (the
-final ICP's in its ``enable_icp`` batch); the rows of chip_smoke's own K3
+final ICP's in its ``enable_icp`` batch), the ``"eval_suite"`` rows their
+shape's launches in (r) (K3's: all of (r)'s); the rows of chip_smoke's own K3
 grids lie on no path: ``"path": null``, ``"launches": 0``), the card's
 name and power limit from nvidia-smi, and ``{"ok": true, "device":
 {...}}``.
@@ -462,16 +478,19 @@ def batch_inputs(P: int, Q: int, T: int):
                  for k in range(4))
 
 
-def check_batched_kernels(nn):
-    """(b) K2 and K1 with the pair axis at the batched main path's shapes:
-    one launch over all pairs, bit for bit (d2 and argmin) against the
-    batched plain version and against each pair's unbatched launch, the
-    tie rule within each pair; the kernel, plain and library times (the
-    yardstick ``cdist`` + ``min`` pair by pair: one (P, Q, T) matrix would
-    not fit) and the bound (P times one pair's).  Returns the rows of the
-    kernels' JSON line (``"path": "register_batch"``)."""
+def check_batched_kernels(nn, k2_shapes=K2_BATCH_SHAPES,
+                          k1_shapes=K1_BATCH_SHAPES, path="register_batch",
+                          tag="[b]"):
+    """(b) K2 and K1 with the pair axis at the batched main path's shapes
+    (or at ``k2_shapes`` / ``k1_shapes`` of ``path``): one launch over all
+    pairs, bit for bit (d2 and argmin) against the batched plain version
+    and against each pair's unbatched launch, the tie rule within each
+    pair; the kernel, plain and library times (the yardstick ``cdist`` +
+    ``min`` pair by pair: one (P, Q, T) matrix would not fit) and the
+    bound (P times one pair's).  Returns the rows of the kernels' JSON
+    line (``"path": path``)."""
     rows = []
-    k2_shapes, k1_shapes = set(K2_BATCH_SHAPES), set(K1_BATCH_SHAPES)
+    k2_shapes, k1_shapes = set(k2_shapes), set(k1_shapes)
     for P, Q, T in sorted(k2_shapes | k1_shapes):
         q, qn, r, rn = batch_inputs(P, Q, T)
         d, i = nn.nearest_neighbor(q, r)
@@ -483,7 +502,7 @@ def check_batched_kernels(nn):
                   f"{nn.reference_slices(Q, T, True, pairs=P)} (K1)")
         if not (torch.equal(d, dp) and torch.equal(i, ip)
                 and torch.equal(o, op)):
-            fail(f"[b] batched K1/K2 P={P} Q={Q} T={T} ({slices} slices) "
+            fail(f"{tag} batched K1/K2 P={P} Q={Q} T={T} ({slices} slices) "
                  "differ from the plain versions")
         for p in range(P):
             d1, i1 = nn.nearest_neighbor(q[p], r[p])
@@ -491,12 +510,12 @@ def check_batched_kernels(nn):
                                          NORMAL_COS)
             if not (torch.equal(d[p], d1) and torch.equal(i[p], i1)
                     and torch.equal(o[p], o1)):
-                fail(f"[b] batched K1/K2 P={P} Q={Q} T={T}: pair {p} differs "
-                     "from its unbatched launch")
+                fail(f"{tag} batched K1/K2 P={P} Q={Q} T={T}: pair {p} "
+                     "differs from its unbatched launch")
         if not (i[:, 0:4] == 5).all() or not torch.isinf(o[:, 3]).all():
-            fail(f"[b] batched K1/K2 P={P} Q={Q} T={T}: tie rule or gate "
+            fail(f"{tag} batched K1/K2 P={P} Q={Q} T={T}: tie rule or gate "
                  "broken")
-        print(f"[b] P={P} Q={Q} T={T}: {slices} reference slices (one pair "
+        print(f"{tag} P={P} Q={Q} T={T}: {slices} reference slices (one pair "
               f"alone: {nn.reference_slices(Q, T)} / "
               f"{nn.reference_slices(Q, T, True)}); batched K2 d2 and argmin "
               "and K1 d2 bit-identical to the batched plain versions and to "
@@ -510,7 +529,7 @@ def check_batched_kernels(nn):
                                           for p in range(P)], reps=3)
             bound_ms, bound_by = bound(P * K2_FLOP * Q * T,
                                        P * (12 * (Q + T) + 8 * Q))
-            print(f"[b] K2 nearest_neighbor P={P} Q={Q} T={T}: kernel "
+            print(f"{tag} K2 nearest_neighbor P={P} Q={Q} T={T}: kernel "
                   f"{ms:.4f} ms, plain {plain_ms:.3f} ms, cdist+min pair by "
                   f"pair {library_ms:.3f} ms, bound {bound_ms:.4f} ms "
                   f"({bound_by}, {100 * bound_ms / ms:.1f}% of it)",
@@ -518,7 +537,7 @@ def check_batched_kernels(nn):
             rows.append({"name": "nearest_neighbor", "route": "cuda",
                          "source": "plade_tpu_torch/csrc/nn.cu",
                          "replaces": "plade_tpu/kernels/nn.py:87",
-                         "shape": shape, "path": "register_batch",
+                         "shape": shape, "path": path,
                          "max_abs_err": max_abs_diff(d, dp), "ms": ms,
                          "plain_ms": plain_ms, "bound_ms": bound_ms,
                          "bound_by": bound_by, "library_ms": library_ms})
@@ -529,21 +548,21 @@ def check_batched_kernels(nn):
                 q, qn, r, rn, NORMAL_COS), reps=1, warm=1)
             bound_ms, bound_by = bound(P * K1_FLOP * Q * T,
                                        P * (24 * (Q + T) + 4 * Q))
-            print(f"[b] K1 oriented_min_dist_sq P={P} Q={Q} T={T}: kernel "
+            print(f"{tag} K1 oriented_min_dist_sq P={P} Q={Q} T={T}: kernel "
                   f"{ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
                   f"{bound_ms:.4f} ms ({bound_by}, "
                   f"{100 * bound_ms / ms:.1f}% of it)", flush=True)
             rows.append({"name": "oriented_min_dist_sq", "route": "cuda",
                          "source": "plade_tpu_torch/csrc/nn.cu",
                          "replaces": "plade_tpu/kernels/nn.py:182",
-                         "shape": shape, "path": "register_batch",
+                         "shape": shape, "path": path,
                          "max_abs_err": max_abs_diff(o, op), "ms": ms,
                          "plain_ms": plain_ms, "bound_ms": bound_ms,
                          "bound_by": bound_by, "library_ms": None})
         del q, qn, r, rn, d, i, o, dp, ip, op
     for row in rows:
-        if row["name"] == "nearest_neighbor" and row["shape"] == \
-                "x".join(map(str, K2_BATCH_SHAPES[1])):
+        if path == "register_batch" and row["name"] == "nearest_neighbor" \
+                and row["shape"] == "x".join(map(str, K2_BATCH_SHAPES[1])):
             row["option"] = "enable_icp"
     return rows
 
@@ -2840,6 +2859,143 @@ def check_intra(cfg, batch_run):
     return paths
 
 
+#: (r)'s scene whose K1/K2 shapes and first repeat's K3 grids are timed:
+#: the suite's largest lockstep batch (7 pairs)
+EVAL_TIMED_SCENE = "floor_long"
+
+
+def check_eval_suite(cfg, per_clock: float, old_k3):
+    """(r) the evaluation suite (``plade_tpu_torch.tools.run_eval``): its 8
+    scenes at ``N_POINTS`` = 60000, ``REPEATS`` = 3 repeats each, every
+    consecutive pair through ``evaluate_scene(device_batch=True)`` on the
+    card at ``cfg`` (the default ``PladeConfig()``).  Per scene: the recall
+    of each repeat, the RMSE, s/pair, the peak memory, the K1/K2/K3
+    launches (with K1/K2's shapes and K3's lanes) and the truncation
+    counters summed over its pairs; each kernel launched in every scene,
+    every transform finite.  The overall recall must reach the reference
+    binary's (``REF_EVAL.json``).  The per-pair results go to
+    ``chiprun_out/eval_smoke.{md,json}``.  Then K1/K2 at
+    ``EVAL_TIMED_SCENE``'s shapes as in (b), and K3 on the grids of that
+    scene's first repeat as in (f).  Returns (the suite's launches, the
+    rows of the kernels' JSON line, ``"path": "eval_suite"``)."""
+    from plade_tpu_torch.extract import ransac
+    from plade_tpu_torch.io import resso
+    from plade_tpu_torch.kernels import cc, nn
+    from plade_tpu_torch.tools import run_eval
+    card = gpu_info()
+    ref = run_eval.load_reference()
+    if not ref:
+        fail(f"[r] no reference results at {run_eval.REF_EVAL}")
+    rp = sum(r["pairs"] for r in ref.values())
+    ref_recall = sum(r["pairs"] * r["recall"] for r in ref.values()) / rp
+    launches = dict.fromkeys(nn.LAUNCHES, 0)
+    by_shape = {}
+    timed = {}
+    runs, problems = [], []
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as base:
+        for sc in run_eval.SCENES:
+            name = sc["name"]
+            keep = name == EVAL_TIMED_SCENE
+            reset_counts()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()
+            with kernel_calls("nearest_neighbor",
+                              lambda a, out: tuple(a[0].shape[:-1])
+                              + (a[1].shape[-2],)) as k2, \
+                    kernel_calls("oriented_min_dist_sq",
+                                 lambda a, out: tuple(a[0].shape[:-1])
+                                 + (a[2].shape[-2],)) as k1, \
+                    recorded_calls(resso, "evaluate_scene",
+                                   lambda a, out: None) as reps, \
+                    recorded_calls(ransac, "close_and_label_lanes",
+                                   lambda a, out: (a[0].clone(), a[1])
+                                   if keep and not reps else
+                                   (a[0].shape[0], None)) as grids:
+                try:
+                    run = run_eval.run_scene(sc, cfg, "cuda",
+                                             run_eval.REPEATS, base)
+                except Exception as e:          # noqa: BLE001
+                    fail(f"[r] {name}: {type(e).__name__}: {e}")
+            peak = torch.cuda.max_memory_allocated() - held
+            counts = dict(nn.LAUNCHES)
+            for k, v in counts.items():
+                launches[k] += v
+            for kname, shapes in (("nearest_neighbor", k2),
+                                  ("oriented_min_dist_sq", k1)):
+                for shape in shapes:
+                    key = (kname, "x".join(map(str, shape)))
+                    by_shape[key] = by_shape.get(key, 0) + 1
+            if keep:
+                timed = dict(k2=sorted(set(k2)), k1=sorted(set(k1)),
+                             grids=[g for g in grids
+                                    if torch.is_tensor(g[0])])
+            lanes = sorted({g[0].shape[0] if torch.is_tensor(g[0]) else g[0]
+                            for g in grids})
+            c = run.counters
+            print(f"[r] {name}{' (holdout)' if sc['holdout'] else ''}: "
+                  f"{run.pairs} pairs, recall {run.recall:.3f} (repeats "
+                  f"{'/'.join(f'{x:.2f}' for x in run.recalls)}), RMSE "
+                  f"{run.rmse:.4f} (repeats "
+                  f"{'/'.join(f'{x:.4f}' for x in run.rmses)}), "
+                  f"{run.s_per_pair:.4f} s/pair (walls "
+                  f"{[round(w, 3) for w in run.walls]} s), peak memory "
+                  f"{peak / 2**20:.1f} MiB above the {held / 2**20:.1f} held "
+                  f"before; launches K2 {counts['nearest_neighbor']} at "
+                  f"{sorted(set(k2))}, K1 {counts['oriented_min_dist_sq']} "
+                  f"at {sorted(set(k1))}, K3 {counts['close_and_label_lanes']}"
+                  f" over lanes {lanes}; counters {c}; {card}", flush=True)
+            for rep, res in enumerate(run.results):
+                for p in res:
+                    if not np.isfinite(p["transform"]).all():
+                        problems.append(f"[r] {name} repeat {rep} pair "
+                                        f"{p['pair']}: transform not finite")
+                    if not p["recalled"] or any(p[k] for k in
+                                                run_eval.COUNTERS):
+                        print(f"[r] {name} repeat {rep} pair {p['pair']}: "
+                              f"success {p['success']}, rotation error "
+                              f"{p['rot_err_deg']:.3f} deg, translation "
+                              f"error {p['trans_err']:.4f}, score "
+                              f"{p['score']:.4f}, matched planes "
+                              f"{p['matched_planes']}, counters "
+                              f"{[p[k] for k in run_eval.COUNTERS]}",
+                              flush=True)
+            if min(counts.values()) < 1:
+                problems.append(f"[r] {name}: a kernel was not launched: "
+                                f"{counts}")
+            runs.append(run)
+    wall = time.perf_counter() - t0
+    sums = {k: sum(r.counters[k] for r in runs) for k in run_eval.COUNTERS}
+    total, recall, rmse = run_eval.overall([(r.pairs, r.recall, r.rmse)
+                                            for r in runs])
+    out = Path(__file__).resolve().parent / "chiprun_out" / "eval_smoke"
+    beats = run_eval.write_report(runs, ref, str(out), card,
+                                  run_eval.REPEATS, wall)
+    print(f"[r] the suite: recall {recall:.4f} over {total} pairs x "
+          f"{run_eval.REPEATS} repeats (the reference binary "
+          f"{ref_recall:.4f}; every scene at or above its reference "
+          f"column: {beats}), translation RMSE {rmse:.4f}, {wall:.1f} s; "
+          f"launches {launches}; K1/K2 launches by shape {by_shape}; "
+          f"counters summed {sums}; "
+          f"results in {out}.md/.json; {card}", flush=True)
+    if recall < ref_recall:
+        problems.append(f"[r] recall {recall} below the reference binary's "
+                        f"{ref_recall}")
+    if problems:
+        fail("; ".join(problems))
+    rows = check_batched_kernels(nn, timed["k2"], timed["k1"],
+                                 path="eval_suite", tag="[r]")
+    for row in rows:
+        row["launches"] = by_shape.get((row["name"], row["shape"]), 0)
+    k3_row = k3_main_path(cc, timed["grids"], per_clock, old_k3, tag="[r]")
+    k3_row.update(path="eval_suite",
+                  launches=launches["close_and_label_lanes"],
+                  shape=f"{EVAL_TIMED_SCENE}, repeat 0: "
+                        f"{k3_row['shape'].split(': ', 1)[1]}")
+    return launches, rows + [k3_row]
+
+
 def main():
     import argparse
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -2852,6 +3008,7 @@ def main():
         "--mesh-worker", nargs=4, metavar=("RANK", "WORLD", "ADDR", "DIR"),
         default=None, help="run as a rank of phase (p)'s 2-process world")
     args = parser.parse_args()
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is false; this smoke run "
               "needs an NVIDIA GPU", flush=True)
@@ -3004,6 +3161,13 @@ def main():
     # (q) one pair's nearest-neighbour passes over a group: the split
     # kernels, two intra meshes on the card, one with enable_icp
     paths.update(check_intra(cfg, batch_run))
+    # (r) the evaluation suite: 8 scenes x 3 repeats, 41 pairs
+    print(f"[r] the script's time before (r): "
+          f"{time.perf_counter() - t_start:.1f} s", flush=True)
+    paths["eval_suite"], eval_rows = check_eval_suite(cfg, per_clock, old_k3)
+    rows += eval_rows
+    print(f"[r] the script's time after (r): "
+          f"{time.perf_counter() - t_start:.1f} s", flush=True)
     rows.append(k3_row)
     for row in rows:
         if row.get("path") == "register_batch" and "launches" not in row:
@@ -3020,8 +3184,8 @@ def main():
         path = row.setdefault("path", "register_pair_device")
         row["launches_by_path"] = {p: counts.get(row["name"], 0)
                                    for p, counts in paths.items()}
-        if path == "register_batch":
-            pass                # (o)'s launches at this row's shape
+        if path in ("register_batch", "eval_suite"):
+            pass                # (o)'s or (r)'s launches at this row's shape
         elif path is None:
             # measured on chip_smoke's own grids, on no main path (K3' is
             # the L = 1 entry the reference's tests call; the paths run the

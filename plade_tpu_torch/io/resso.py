@@ -2,7 +2,8 @@
 
 A copy of ``plade_tpu/io/resso.py`` (that package imports JAX when it is
 imported); ``evaluate_scene`` runs the port's registration on the port's
-mesh (``dist/mesh.py``) or on ``device``.
+mesh (``dist/mesh.py``) or on ``device``, and with ``device_batch`` keeps
+each pair's ``PairOutcome`` in its ``PairResult``.
 
 RESSO ("Real-world Scans with Small Overlap", linked from the reference
 README "Test Dataset" section; not bundled) is the reference's external
@@ -108,6 +109,9 @@ class PairResult:
     success: bool
     rot_err_deg: float | None = None
     trans_err: float | None = None
+    #: the pair's ``dist.mesh.PairOutcome`` (score, overlap, matched planes,
+    #: truncation counters) when it ran through the device step
+    outcome: object = None
 
 
 @dataclass
@@ -184,7 +188,8 @@ def evaluate_scene(scene: RessoScene, cfg=None, pairs=None, seed: int = 0,
                 ok = bool(info.get("success"))
             except (ValueError, FileNotFoundError):
                 T, ok = np.eye(4), False
-        r = PairResult(target=tgt, source=src, transform=T, success=ok)
+        r = PairResult(target=tgt, source=src, transform=T, success=ok,
+                       outcome=None if outcomes is None else outcomes[idx])
         if scene.gt_poses is not None:
             G = scene.pair_ground_truth(i, j)
             r.rot_err_deg = rotation_error_deg(G[:3, :3], T[:3, :3])

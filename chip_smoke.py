@@ -1763,7 +1763,7 @@ def run_cli(tag, argv, problems):
     return dict(nn.LAUNCHES), wall
 
 
-#: the ``plade.*`` ranges of the device step (``pipeline._stage``)
+#: the ``plade.*`` ranges of the device step (``utils.timing.stage``)
 STEP_STAGES = ("extract", "spacing", "prepare", "descriptors", "match",
                "cluster", "consistency", "penetration", "overlap", "rescore")
 #: each kernel's name in a trace, by its launch counter
@@ -2820,9 +2820,10 @@ def check_intra(cfg, batch_run):
               f"{card}", flush=True)
         if not same:
             problems.append(f"[q] {path}: not the bits of (o)'s B = {want}")
-        if syncs != want_syncs:
+        # and each group's copy of its 8 result fields to the host
+        if syncs != want_syncs + 8 * groups:
             problems.append(f"[q] {path}: host syncs {syncs}, (o) "
-                            f"{want_syncs}")
+                            f"{want_syncs} + {8 * groups} copies")
         if len(by) != groups:
             problems.append(f"[q] {path}: K3 on {len(by)} group threads")
         for c in by.values():

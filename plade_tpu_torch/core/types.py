@@ -16,22 +16,35 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..utils import timing
+
 #: sentinel coordinate for padded points — far outside any scene
 BIG = 1.0e8
 
-#: host reads of device values made through ``host_value``; a run resets it
-#: and reads it to count its host syncs (the shards of a mesh read from
-#: threads of their own, hence the lock)
+#: host reads of device values made through ``host_value`` and
+#: ``host_copy``; a run resets it and reads it to count its host syncs (the
+#: shards of a mesh read from threads of their own, hence the lock)
 HOST_SYNCS = {"count": 0}
 _SYNCS_LOCK = threading.Lock()
+
+
+def _count_read():
+    with _SYNCS_LOCK:
+        HOST_SYNCS["count"] += 1
+    timing.host_read()
 
 
 def host_value(t: torch.Tensor):
     """The Python value of a tensor (a number for a 0-d tensor, else a
     list); counts one host sync."""
-    with _SYNCS_LOCK:
-        HOST_SYNCS["count"] += 1
+    _count_read()
     return t.tolist()
+
+
+def host_copy(t: torch.Tensor) -> torch.Tensor:
+    """A tensor copied to the CPU; counts one host sync."""
+    _count_read()
+    return t.cpu()
 
 
 def _mask(n: int, count: torch.Tensor) -> torch.Tensor:

@@ -31,9 +31,10 @@ import numpy as np
 import torch
 
 from ..core.config import PladeConfig
-from ..core.types import Cloud, RegistrationResult, pad_cloud
+from ..core.types import Cloud, RegistrationResult, host_copy, pad_cloud
 from ..pipeline import (_cap_cloud, _pad_size, _run_device,
                         register_pair_device)
+from ..utils import timing
 
 PAIRS = "pairs"
 INTRA = "intra"
@@ -166,19 +167,24 @@ def _register_shards(tgt_batch: Cloud, src_batch: Cloud, seeds, cfg,
     devices, home first), each shard in lockstep on its home with the rest
     of its group as ``intra``, in a host thread of its own (a lone shard in
     this thread); the results on the CPU in pair order.  A shard's
-    exception is raised here once every shard has ended."""
+    exception is raised here once every shard has ended.  Each shard is
+    the span ``shard.<k>.<home>``, credited to the caller's call, with its
+    pairs counted as ``shard.<k>.pairs``."""
     B, N = tgt_batch.points.shape[:2]
     after = torch.cuda.current_stream(tgt_batch.points.device) \
         if tgt_batch.points.is_cuda else None
     cut = _bounds(B, len(groups))
+    caller = timing.current_call()
 
-    def shard(group, lo, hi):
-        step = register_pair_device(cfg, N, group[0], group[1:])
-        res = step(Cloud(*(x[lo:hi] for x in tgt_batch)),
-                   Cloud(*(x[lo:hi] for x in src_batch)), seeds[lo:hi],
-                   None if draws is None else draws[2 * lo:2 * hi])
-        # the copy to the host waits for the shard's stream
-        return RegistrationResult(*(x.cpu() for x in res))
+    def shard(k, group, lo, hi):
+        with timing.joined(caller), timing.stage(f"shard.{k}.{group[0]}"):
+            timing.count(f"shard.{k}.pairs", hi - lo)
+            step = register_pair_device(cfg, N, group[0], group[1:])
+            res = step(Cloud(*(x[lo:hi] for x in tgt_batch)),
+                       Cloud(*(x[lo:hi] for x in src_batch)), seeds[lo:hi],
+                       None if draws is None else draws[2 * lo:2 * hi])
+            # the copy to the host waits for the shard's stream
+            return RegistrationResult(*(host_copy(x) for x in res))
 
     jobs = [(k, g, lo, hi) for k, (g, lo, hi)
             in enumerate(zip(groups, cut, cut[1:])) if hi > lo]
@@ -188,10 +194,10 @@ def _register_shards(tgt_batch: Cloud, src_batch: Cloud, seeds, cfg,
         # in this thread, where the caller's profiler sees its ranges
         (k, g, lo, hi), = jobs
         return _in_shard(g[0], k, after,
-                         functools.partial(shard, g, lo, hi))
+                         functools.partial(shard, k, g, lo, hi))
     with ThreadPoolExecutor(max_workers=len(jobs)) as pool:
         futures = [pool.submit(_in_shard, g[0], k, after,
-                               functools.partial(shard, g, lo, hi))
+                               functools.partial(shard, k, g, lo, hi))
                    for k, g, lo, hi in jobs]
     parts = [f.result() for f in futures]
     return RegistrationResult(*(torch.cat(f) for f in zip(*parts)))
@@ -228,16 +234,18 @@ def register_batch(tgt_batch: Cloud, src_batch: Cloud, seeds,
     if len(seeds) != B or (draws is not None and len(draws) != 2 * B):
         raise ValueError(f"register_batch: {B} pairs, {len(seeds)} seeds, "
                          f"{None if draws is None else len(draws)} draws")
-    if device is not None:
-        if mesh is not None:
-            raise ValueError("register_batch: give mesh or device, not both")
-        step = register_pair_device(cfg, tgt_batch.points.shape[1], device)
-        return step(tgt_batch, src_batch, seeds, draws)
-    if mesh is None:
-        mesh = make_mesh()
-    res = _register_shards(tgt_batch, src_batch, seeds, cfg, mesh.groups,
-                           draws)
-    return _gather(res, mesh) if mesh.world_size > 1 else res
+    if device is not None and mesh is not None:
+        raise ValueError("register_batch: give mesh or device, not both")
+    with timing.call("register_batch", B):
+        if device is not None:
+            step = register_pair_device(cfg, tgt_batch.points.shape[1],
+                                        device)
+            return step(tgt_batch, src_batch, seeds, draws)
+        if mesh is None:
+            mesh = make_mesh()
+        res = _register_shards(tgt_batch, src_batch, seeds, cfg,
+                               mesh.groups, draws)
+        return _gather(res, mesh) if mesh.world_size > 1 else res
 
 
 def register_array_pairs(cloud_pairs, cfg: PladeConfig, seed: int = 0,
@@ -270,44 +278,53 @@ def register_array_pairs(cloud_pairs, cfg: PladeConfig, seed: int = 0,
         mesh = make_mesh()
     if not cloud_pairs:
         return []
-    capped = []
-    cap_flags = []
-    max_n = 0
-    for i, (tp, tn, sp, sn) in enumerate(cloud_pairs):
-        tp, tn, t_capped = _cap_cloud(tp, tn, cfg.max_points, seed + 2 * i)
-        sp, sn, s_capped = _cap_cloud(sp, sn, cfg.max_points,
-                                      seed + 2 * i + 1)
-        if t_capped or s_capped:
-            print(f"[register_array_pairs] pair {i}: cloud capped to "
-                  f"max_points={cfg.max_points}", flush=True)
-        cap_flags.append(bool(t_capped or s_capped))
-        max_n = max(max_n, tp.shape[0], sp.shape[0])
-        capped.append((tp, tn, sp, sn))
-    pad = _pad_size(max_n, maximum=cfg.max_points)
-    # the padded clouds: on the device, or on the host for the shards
-    home = device or torch.device("cpu")
-    D = len(mesh.groups) if mesh is not None else 1
-    W = mesh.world_size if mesh is not None else 1
-    outcomes = []
-    for start in range(0, len(capped), batch_pairs * D * W):
-        chunk = capped[start:start + batch_pairs * D * W]
-        # this rank's part: its groups' shards of the chunk
-        cut = _bounds(len(chunk), D * W)
-        r = mesh.rank if mesh is not None else 0
-        lo, hi = cut[r * D], cut[(r + 1) * D]
-        tgt_b, src_b = (_stack_padded([c[2 * s:2 * s + 2]
-                                       for c in chunk[lo:hi]], pad, home)
-                        for s in (0, 1))
-        res = register_batch(tgt_b, src_b,
-                             [seed + start + lo + i for i in range(hi - lo)],
-                             cfg, mesh=mesh, device=device)
-        host = RegistrationResult(*(x.cpu().numpy() for x in res))
-        outcomes += [PairOutcome(
-            host.transform[i], bool(host.success[i]), float(host.score[i]),
-            float(host.overlap[i]), int(host.matched_planes[i]),
-            cloud_capped=cap_flags[start + i],
-            match_saturated=int(host.match_saturated[i]),
-            pen_overflow=int(host.pen_overflow[i]),
-            cluster_truncated=int(host.cluster_truncated[i]))
-            for i in range(len(chunk))]
+    with timing.call("register_array_pairs", len(cloud_pairs)):
+        with timing.stage("entry.stage_in"):
+            capped = []
+            cap_flags = []
+            max_n = 0
+            for i, (tp, tn, sp, sn) in enumerate(cloud_pairs):
+                tp, tn, t_capped = _cap_cloud(tp, tn, cfg.max_points,
+                                              seed + 2 * i)
+                sp, sn, s_capped = _cap_cloud(sp, sn, cfg.max_points,
+                                              seed + 2 * i + 1)
+                if t_capped or s_capped:
+                    print(f"[register_array_pairs] pair {i}: cloud capped "
+                          f"to max_points={cfg.max_points}", flush=True)
+                cap_flags.append(bool(t_capped or s_capped))
+                max_n = max(max_n, tp.shape[0], sp.shape[0])
+                capped.append((tp, tn, sp, sn))
+            pad = _pad_size(max_n, maximum=cfg.max_points)
+        # the padded clouds: on the device, or on the host for the shards
+        home = device or torch.device("cpu")
+        D = len(mesh.groups) if mesh is not None else 1
+        W = mesh.world_size if mesh is not None else 1
+        outcomes = []
+        for start in range(0, len(capped), batch_pairs * D * W):
+            chunk = capped[start:start + batch_pairs * D * W]
+            # this rank's part: its groups' shards of the chunk
+            cut = _bounds(len(chunk), D * W)
+            r = mesh.rank if mesh is not None else 0
+            lo, hi = cut[r * D], cut[(r + 1) * D]
+            with timing.stage("entry.stage_in"):
+                tgt_b, src_b = (_stack_padded([c[2 * s:2 * s + 2]
+                                               for c in chunk[lo:hi]], pad,
+                                              home) for s in (0, 1))
+            res = register_batch(
+                tgt_b, src_b, [seed + start + lo + i for i in range(hi - lo)],
+                cfg, mesh=mesh, device=device)
+            with timing.stage("entry.read_out"):
+                # a mesh's shards have copied their results to the host
+                host = RegistrationResult(*(
+                    (host_copy(x) if device is not None else x).numpy()
+                    for x in res))
+                outcomes += [PairOutcome(
+                    host.transform[i], bool(host.success[i]),
+                    float(host.score[i]), float(host.overlap[i]),
+                    int(host.matched_planes[i]),
+                    cloud_capped=cap_flags[start + i],
+                    match_saturated=int(host.match_saturated[i]),
+                    pen_overflow=int(host.pen_overflow[i]),
+                    cluster_truncated=int(host.cluster_truncated[i]))
+                    for i in range(len(chunk))]
     return outcomes

@@ -16,7 +16,11 @@ keeps its semantics operation for operation; where PyTorch differs:
   on the host once per round (``core.types.host_value``), and nothing else
   inside a round reads the device.  A cloud that is done is frozen: the
   rounds the others still run leave its state, ``rounds`` included, as it
-  was, as the vmapped ``while_loop`` of the reference does.
+  was, as the vmapped ``while_loop`` of the reference does.  Each pass is
+  the span ``extract.round`` (``utils/timing.py``), its draws and its read
+  of ``done`` spans of their own; the call counts the passes
+  (``extract.rounds``), the clouds they computed (``extract.cloud_rounds``)
+  and those of them already done (``extract.frozen``).
 * ``top_k``, ``approx_max_k`` (exact off the TPU) and ``argsort`` keep the
   lower index first among ties, as JAX does: they are stable sorts here.
 * ``.at[idx].set(..., mode="drop")`` scatters into a buffer one slot
@@ -52,6 +56,7 @@ from ..core.types import PlaneSet, host_value
 from ..geometry.eig3 import smallest_eigvec3
 from ..geometry.transforms import cross
 from ..kernels.cc import close_and_label_lanes
+from ..utils import timing
 
 _EPS = 1e-12
 #: ring of banned planes (see ``_State.ban_n``)
@@ -784,25 +789,34 @@ def build_extract_fn(cfg: PladeConfig, num_points: int,
         rows = torch.arange(B, device=dev)[:, None]
         done = [False] * B
         last = [None] * B
+        rounds = frozen = 0
         while True:
-            # a cloud's draws see its own state; a done cloud draws no more
-            # (its last draws fill its slot, and its round is discarded)
-            for c in range(B):
-                if not done[c]:
-                    last[c] = draws[c](_State(*(f[c] for f in state)))
-            drawn_now = tuple(torch.stack(xs) for xs in zip(*last))
-            new = round_body(state, drawn_now, rows, th_sched, safe_pts,
-                             normals, valid, eps, bitmap_eps, scale,
-                             int(floor_support))
-            if any(done):
-                frozen = state.done
-                new = _State(*(
-                    torch.where(frozen.reshape((B,) + (1,) * (o.dim() - 1)),
-                                o, n) for o, n in zip(state, new)))
-            state = new
-            done = host_value(state.done)
+            with timing.stage("extract.round"):
+                # a cloud's draws see its own state; a done cloud draws no
+                # more (its last draws fill its slot, and its round is
+                # discarded)
+                with timing.stage("extract.draws"):
+                    for c in range(B):
+                        if not done[c]:
+                            last[c] = draws[c](_State(*(f[c] for f in state)))
+                drawn_now = tuple(torch.stack(xs) for xs in zip(*last))
+                new = round_body(state, drawn_now, rows, th_sched, safe_pts,
+                                 normals, valid, eps, bitmap_eps, scale,
+                                 int(floor_support))
+                rounds += 1
+                frozen += sum(done)
+                if any(done):
+                    new = _State(*(torch.where(
+                        state.done.reshape((B,) + (1,) * (o.dim() - 1)),
+                        o, n) for o, n in zip(state, new)))
+                state = new
+                with timing.stage("extract.done_read"):
+                    done = host_value(state.done)
             if all(done):
                 break
+        timing.count("extract.rounds", rounds)
+        timing.count("extract.cloud_rounds", B * rounds)
+        timing.count("extract.frozen", frozen)
         planes = PlaneSet(coeffs=state.coeffs, sizes=state.sizes,
                           count=state.num_planes,
                           point_plane=state.point_plane)

@@ -32,7 +32,10 @@ a ``RegistrationResult`` of tensors.  ``prepare_cloud`` and
 one-pair call is the one-pair case of the batched code.  They run on ``device``, by default
 CUDA whatever the inputs are (inputs are moved there); without a CUDA
 device they raise ``RuntimeError`` unless the caller passes
-``device="cpu"``, which runs the kernels' plain versions.
+``device="cpu"``, which runs the kernels' plain versions.  Each public
+entry is one call of the port's recorder (``utils/timing.py``), in which
+its staging, the device step's set-up, every stage and its reads of the
+results are spans.
 """
 from __future__ import annotations
 
@@ -47,8 +50,8 @@ from .core.config import PladeConfig
 from .core.ops import (drop, lift, nonzero_static, per_pair, scalar, take,
                        tree_map)
 from .core.types import (BIG, Cloud, LineSet, PlaneGeometry, PlaneSet,
-                         RegistrationResult, host_value, pad_cloud,
-                         se3_matrix)
+                         RegistrationResult, host_copy, host_value,
+                         pad_cloud, se3_matrix)
 from .descriptors.pairlines import degraded_descriptors, pair_descriptors
 from .extract import ransac
 from .geometry.lines import intersect_planes, project_points_to_plane
@@ -58,15 +61,9 @@ from .geometry.voxel import voxel_downsample, voxel_downsample_by_plane
 from .knn.bruteforce import ONE_DEVICE, NNPasses, average_spacing
 from .match import matching
 from .refine.icp import refine_icp
+from .utils import timing
 from .verify import overlap as overlap_mod
 from .verify import penetration
-
-
-def _stage(name: str):
-    """Label a stage for ``torch.profiler`` (its ranges name the layers of
-    the time breakdown; the label costs next to nothing when no profiler
-    runs)."""
-    return torch.profiler.record_function(f"plade.{name}")
 
 
 def _line_confidence(lines: LineSet, geom: PlaneGeometry, dsd,
@@ -247,7 +244,7 @@ def register_pair(tgt: PreparedCloud, src: PreparedCloud, dparams,
     scale, length_threshold, dsd = (per_pair(x, P, dev) for x in dparams)
     ninf = -float("inf")
     cos10 = math.cos(cfg.line_pair_min_angle)
-    with _stage("descriptors"):
+    with timing.stage("descriptors"):
         tgt_desc = pair_descriptors(
             tgt.lines, tgt.planes.coeffs[..., :3], scale,
             cfg.max_target_pairs, ordered=True, min_angle_cos=cos10,
@@ -256,7 +253,7 @@ def register_pair(tgt: PreparedCloud, src: PreparedCloud, dparams,
             src.lines, src.planes.coeffs[..., :3], scale, cfg.max_query_pairs,
             ordered=False, min_angle_cos=cos10, pad_value=1e6)
 
-    with _stage("match"):
+    with timing.stage("match"):
         matches = matching.match_descriptors(
             src_desc, tgt_desc, cfg.descriptor_match_radius, cfg.max_matches,
             per_query=cfg.match_per_query)
@@ -285,7 +282,7 @@ def register_pair(tgt: PreparedCloud, src: PreparedCloud, dparams,
             R, t, hyp_valid, total_matches = matching.stitch_hypotheses(
                 segments)
 
-    with _stage("cluster"):
+    with timing.stage("cluster"):
         # cluster at half the length/angle thresholds (util.cpp:331) over the
         # front-compacted prefix; overflow is counted (cluster_truncated)
         euler_tol = math.sqrt(cfg.angle_threshold / 2.0)
@@ -298,7 +295,7 @@ def register_pair(tgt: PreparedCloud, src: PreparedCloud, dparams,
         cR = take(R, rep)
         ct = take(t, rep)
 
-    with _stage("consistency"):
+    with timing.stage("consistency"):
         counts, _ = matching.plane_consistency(
             cR, ct, clusters.valid,
             src.planes.coeffs, src.geom.centers, src.geom.radii,
@@ -318,7 +315,7 @@ def register_pair(tgt: PreparedCloud, src: PreparedCloud, dparams,
         st = take(ct, sel)
         sel_counts = torch.gather(counts, 1, sel)
 
-    with _stage("penetration"):
+    with timing.stage("penetration"):
         pen_overflow = torch.zeros((P,), dtype=torch.int32, device=dev)
         if cfg.enable_penetration_filter:
             tests = penetration.build_tests(
@@ -344,7 +341,7 @@ def register_pair(tgt: PreparedCloud, src: PreparedCloud, dparams,
             sel_valid = sel_valid & ~rejected
             pen_overflow = tests.overflow
 
-    with _stage("overlap"):
+    with timing.stage("overlap"):
         plane_frac = sel_counts.to(torch.float32) / torch.clamp(
             src.planes.count.to(torch.float32), min=1.0)[:, None]
         ov, ov_approx = overlap_mod.overlap_scores(
@@ -361,7 +358,7 @@ def register_pair(tgt: PreparedCloud, src: PreparedCloud, dparams,
         # read it on the host
         best = torch.argmax(score, dim=1, keepdim=True)
 
-    with _stage("rescore"):
+    with timing.stage("rescore"):
         if cfg.rescore_top_k > 0:
             # tight-radius rescore of the top-K pose-distinct coarse candidates
             # (a framework addition of the reference package; see
@@ -436,7 +433,7 @@ def register_pair(tgt: PreparedCloud, src: PreparedCloud, dparams,
     Rb = torch.where(success[:, None, None], best_R, torch.eye(3, device=dev))
     tb = torch.where(success[:, None], best_t, torch.zeros(3, device=dev))
     if cfg.enable_icp:
-        with _stage("icp"):
+        with timing.stage("icp"):
             # point-to-plane refinement of the winning pose over the full
             # downsampled source (a framework addition of the reference
             # package): one K2 launch per iteration and one after, for all
@@ -509,8 +506,9 @@ def _register_planes(tgt_cloud: Cloud, src_cloud: Cloud,
     """Spacing, preparation and pair registration of two padded clouds
     with their planes; fills ``info`` and returns the 4x4 numpy transform
     (identity with ``info["failure"]`` when a cloud has too few planes)."""
-    info["tgt_planes"] = host_value(tgt_planes.count)
-    info["src_planes"] = host_value(src_planes.count)
+    with timing.stage("entry.read_out"):
+        info["tgt_planes"] = host_value(tgt_planes.count)
+        info["src_planes"] = host_value(src_planes.count)
     if info["tgt_planes"] < cfg.min_planes or \
             info["src_planes"] < cfg.min_planes:
         # too few planes (plade.cpp:646-657)
@@ -518,27 +516,28 @@ def _register_planes(tgt_cloud: Cloud, src_cloud: Cloud,
         return np.eye(4, dtype=np.float32)
 
     # parameters derived from the source cloud's spacing (plade.cpp:41-56)
-    with _stage("spacing"):
+    with timing.stage("spacing"):
         sp = host_value(average_spacing(src_cloud.points, src_cloud.mask,
                                         cfg.spacing_k, cfg.spacing_samples))
     dp = cfg.derived(sp)
     info["average_spacing"] = sp
 
     dsd = scalar(dp.down_sample_distance, device)
-    with _stage("prepare"):
+    with timing.stage("prepare"):
         tgt_prep = prepare_cloud(tgt_cloud, tgt_planes, dsd, cfg)
         src_prep = prepare_cloud(src_cloud, src_planes, dsd, cfg)
     dparams = (scalar(dp.scale, device), scalar(dp.length_threshold, device),
                dsd)
     result = register_pair(tgt_prep, src_prep, dparams, cfg)
-    info["score"] = host_value(result.score)
-    info["overlap"] = host_value(result.overlap)
-    info["matched_planes"] = host_value(result.matched_planes)
-    info["success"] = bool(host_value(result.success))
-    info["match_saturated"] = host_value(result.match_saturated)
-    info["pen_overflow"] = host_value(result.pen_overflow)
-    info["cluster_truncated"] = host_value(result.cluster_truncated)
-    return result.transform.cpu().numpy()
+    with timing.stage("entry.read_out"):
+        info["score"] = host_value(result.score)
+        info["overlap"] = host_value(result.overlap)
+        info["matched_planes"] = host_value(result.matched_planes)
+        info["success"] = bool(host_value(result.success))
+        info["match_saturated"] = host_value(result.match_saturated)
+        info["pen_overflow"] = host_value(result.pen_overflow)
+        info["cluster_truncated"] = host_value(result.cluster_truncated)
+        return host_copy(result.transform).numpy()
 
 
 def register_with_planes(tgt_points, tgt_normals, src_points, src_normals,
@@ -563,13 +562,15 @@ def register_with_planes(tgt_points, tgt_normals, src_points, src_normals,
             "register_with_planes cannot subsample (plane point indices "
             "would dangle) — raise max_points or downsample the input")
     pad = _pad_size(n_max, maximum=cfg.max_points)
-    tgt_cloud = pad_cloud(tgt_points, tgt_normals, pad, device)
-    src_cloud = pad_cloud(src_points, src_normals, pad, device)
-    info = {}
-    T = _register_planes(tgt_cloud, src_cloud,
-                         _as_planes(tgt_planes, pad, device),
-                         _as_planes(src_planes, pad, device), cfg, device,
-                         info)
+    with timing.call("register_with_planes", 1):
+        with timing.stage("entry.stage_in"):
+            tgt_cloud = pad_cloud(tgt_points, tgt_normals, pad, device)
+            src_cloud = pad_cloud(src_points, src_normals, pad, device)
+            planes = (_as_planes(tgt_planes, pad, device),
+                      _as_planes(src_planes, pad, device))
+        info = {}
+        T = _register_planes(tgt_cloud, src_cloud, *planes, cfg, device,
+                             info)
     return T, info
 
 
@@ -636,12 +637,13 @@ def build_register_device_fn(cfg: PladeConfig, num_points: int,
         if len(seed) != B or (draws is not None and len(draws) != 2 * B):
             raise ValueError(f"step: {B} pairs, {len(seed)} seeds, "
                              f"{None if draws is None else len(draws)} draws")
-        # the clouds' axis: the B targets, then the B sources
-        clouds = Cloud(*(torch.cat([a, b]).to(device)
-                         for a, b in zip(tgt_cloud, src_cloud)))
-        gens = [g for s in seed for g in _generators(int(s), device)]
+        with timing.stage("step.setup"):
+            # the clouds' axis: the B targets, then the B sources
+            clouds = Cloud(*(torch.cat([a, b]).to(device)
+                             for a, b in zip(tgt_cloud, src_cloud)))
+            gens = [g for s in seed for g in _generators(int(s), device)]
         order = list(range(0, 2 * B, 2)) + list(range(1, 2 * B, 2))
-        with _stage("extract"):
+        with timing.stage("extract"):
             planes, stats = ransac._cached_extractor(cfg, num_points)(
                 clouds.points, clouds.normals, clouds.count,
                 cfg.ransac_min_allowed_support,
@@ -652,13 +654,13 @@ def build_register_device_fn(cfg: PladeConfig, num_points: int,
             & (planes.count[B:] >= cfg.min_planes)
         # parameters derived from each source cloud's spacing
         # (plade.cpp:41-56), float32 on the device
-        with _stage("spacing"):
+        with timing.stage("spacing"):
             sp = average_spacing(clouds.points[B:], clouds.mask[B:],
                                  cfg.spacing_k, cfg.spacing_samples, nn)
         dsd = cfg.downsample_factor * sp
         lt = cfg.length_factor * sp
         scale = lt / math.cos(math.pi / 2 - cfg.angle_threshold)
-        with _stage("prepare"):
+        with timing.stage("prepare"):
             prep = prepare_cloud(clouds, planes, torch.cat([dsd, dsd]), cfg)
         res = register_pair(tree_map(lambda x: x[:B], prep),
                             tree_map(lambda x: x[B:], prep),
@@ -715,50 +717,55 @@ def register_clouds(tgt_points, tgt_normals, src_points, src_normals,
 
     Returns (transform 4x4 np.ndarray, info dict)."""
     device = _run_device(device)
-    swapped = False
-    if src_points.shape[0] >= tgt_points.shape[0] * cfg.swap_size_ratio:
-        tgt_points, src_points = src_points, tgt_points
-        tgt_normals, src_normals = src_normals, tgt_normals
-        swapped = True
+    with timing.call("register_clouds", 1):
+        with timing.stage("entry.stage_in"):
+            swapped = False
+            if src_points.shape[0] >= \
+                    tgt_points.shape[0] * cfg.swap_size_ratio:
+                tgt_points, src_points = src_points, tgt_points
+                tgt_normals, src_normals = src_normals, tgt_normals
+                swapped = True
+            tgt_points, tgt_normals, tgt_capped = _cap_cloud(
+                tgt_points, tgt_normals, cfg.max_points, seed)
+            src_points, src_normals, src_capped = _cap_cloud(
+                src_points, src_normals, cfg.max_points, seed + 1)
+            pad = _pad_size(max(tgt_points.shape[0], src_points.shape[0]),
+                            maximum=cfg.max_points)
+            tgt_cloud = pad_cloud(tgt_points, tgt_normals, pad, device)
+            src_cloud = pad_cloud(src_points, src_normals, pad, device)
 
-    tgt_points, tgt_normals, tgt_capped = _cap_cloud(
-        tgt_points, tgt_normals, cfg.max_points, seed)
-    src_points, src_normals, src_capped = _cap_cloud(
-        src_points, src_normals, cfg.max_points, seed + 1)
-    pad = _pad_size(max(tgt_points.shape[0], src_points.shape[0]),
-                    maximum=cfg.max_points)
-    tgt_cloud = pad_cloud(tgt_points, tgt_normals, pad, device)
-    src_cloud = pad_cloud(src_points, src_normals, pad, device)
+        if ransac_min_support is None:
+            pinned = (None, None)
+        elif isinstance(ransac_min_support, int):
+            pinned = (ransac_min_support,) * 2
+        else:
+            pinned = tuple(ransac_min_support)
+        if swapped:
+            pinned = pinned[::-1]
+        planes = []
+        for cloud, gen, m in zip((tgt_cloud, src_cloud),
+                                 _generators(seed, device), pinned):
+            with timing.stage("extract"):
+                if m is None:
+                    planes.append(ransac.auto_extract(
+                        cloud.points, cloud.normals, cloud.count, cfg, pad,
+                        generator=gen))
+                else:
+                    # pinned support: the floor and start of the
+                    # extraction, no auto-tune halving, no threshold
+                    # re-selection
+                    planes.append(ransac.select_planes_pinned(
+                        ransac._cached_extractor(cfg, pad)(
+                            cloud.points, cloud.normals, cloud.count, m,
+                            generator=gen, init_support=m)[0], cfg))
 
-    if ransac_min_support is None:
-        pinned = (None, None)
-    elif isinstance(ransac_min_support, int):
-        pinned = (ransac_min_support,) * 2
-    else:
-        pinned = tuple(ransac_min_support)
-    if swapped:
-        pinned = pinned[::-1]
-    planes = []
-    for cloud, gen, m in zip((tgt_cloud, src_cloud),
-                             _generators(seed, device), pinned):
-        with _stage("extract"):
-            if m is None:
-                planes.append(ransac.auto_extract(
-                    cloud.points, cloud.normals, cloud.count, cfg, pad,
-                    generator=gen))
-            else:
-                # pinned support: the floor and start of the extraction, no
-                # auto-tune halving, no threshold re-selection
-                planes.append(ransac.select_planes_pinned(
-                    ransac._cached_extractor(cfg, pad)(
-                        cloud.points, cloud.normals, cloud.count, m,
-                        generator=gen, init_support=m)[0], cfg))
-
-    info = {"swapped": swapped}
-    if tgt_capped or src_capped:
-        info["cloud_capped"] = {"target": tgt_capped, "source": src_capped,
-                                "max_points": cfg.max_points}
-    T = _register_planes(tgt_cloud, src_cloud, *planes, cfg, device, info)
+        info = {"swapped": swapped}
+        if tgt_capped or src_capped:
+            info["cloud_capped"] = {"target": tgt_capped,
+                                    "source": src_capped,
+                                    "max_points": cfg.max_points}
+        T = _register_planes(tgt_cloud, src_cloud, *planes, cfg, device,
+                             info)
     if swapped:
         T = np.linalg.inv(T)
     return T, info
@@ -771,8 +778,10 @@ def register_files(target_file: str, source_file: str,
     both files and calls :func:`register_clouds` on ``device`` (by default
     CUDA)."""
     from .io.ply import read_ply
-    tp, tn = read_ply(target_file)
-    sp_, sn = read_ply(source_file)
-    if tn is None or sn is None:
-        raise ValueError("registration requires point normals in both clouds")
-    return register_clouds(tp, tn, sp_, sn, cfg, seed, device=device)
+    with timing.call("register_files", 1):
+        tp, tn = read_ply(target_file)
+        sp_, sn = read_ply(source_file)
+        if tn is None or sn is None:
+            raise ValueError(
+                "registration requires point normals in both clouds")
+        return register_clouds(tp, tn, sp_, sn, cfg, seed, device=device)

@@ -9,7 +9,8 @@ against the reference's sharded ``register_batch``, on the CPU.
     2/1/1, 3 pairs 1/1/1/0 with an empty shard): bit for bit the
     one-device call's results, in pair order, on the CPU; a shard's
     exception reaches the caller; the host syncs of 2 shards are the sum of
-    their single calls'; a lone shard runs in the caller's thread.
+    their single calls' and their copies of the results to the host; a lone
+    shard runs in the caller's thread.
 (c) The 2-shard mesh on the reference's replayed draws against
     ``plade_tpu.dist.mesh.register_batch`` on a 2-device CPU mesh: the
     transforms within 0.1 deg and 1e-3, score and overlap within 1e-3,
@@ -176,7 +177,8 @@ def test_host_syncs_of_shards_add_up(pairs):
         ptypes.HOST_SYNCS["count"] = 0
         run()
         syncs.append(ptypes.HOST_SYNCS["count"])
-    assert syncs[0] == syncs[1] + syncs[2] > 0, syncs
+    # and each shard's copy of its 8 result fields to the host
+    assert syncs[0] == syncs[1] + syncs[2] + 2 * 8 > 16, syncs
 
 
 def test_lone_shard_runs_in_the_callers_thread(pairs, monkeypatch):

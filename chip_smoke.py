@@ -5,7 +5,12 @@
 (``--mesh-worker RANK WORLD ADDR DIR`` runs one rank of phase (p)'s
 2-process world; the script starts those itself.)
 
-Phases, in order; any failed check exits non-zero:
+Phases, in order; any failed check exits non-zero.  On the card each pass
+of extraction is a replay of its CUDA graph, which calls no Python
+wrapper: every phase reads K3's launches as counted at each replay, once
+a pass, and the phases that need K3's inputs or lanes take them from one
+more run with extraction's eager loop (``eager_k3_calls``), whose
+extractions must be the main path's bits:
 
 (a) build the CUDA kernels from ``plade_tpu_torch/csrc``;
 (b) hold each kernel against its plain PyTorch version on the card, bit
@@ -113,7 +118,8 @@ Phases, in order; any failed check exits non-zero:
     with the float scatter-sums as atomic ``index_add_`` first differ).
     ``register_array_pairs`` on a mesh of two shards on cuda:0 (4 pairs a
     shard in lockstep, each in a thread and on a stream of its own; each
-    shard's K1/K2/K3 launches told apart by stream): the bits of (o)'s B =
+    shard's K1/K2 launches told apart by stream, each shard's stream
+    holding its pass graph): the bits of (o)'s B =
     4 batches, every pair within 1e-4 of its B = 1 transform in (o), the
     wall per pair and peak memory beside (o)'s B = 8 and 4;
     ``register_batch`` on ``make_mesh()`` (every visible card): the bits of
@@ -133,16 +139,17 @@ Phases, in order; any failed check exits non-zero:
     * 2, intra=2)`` (one group: the bits of (o)'s B = 8) and ``* 4,
     intra=2`` (two groups: the bits of (o)'s B = 4 batches), each with the
     wall per pair, peak memory, host syncs (those of (o)) and the K1/K2/K3
-    launches by group thread and stream (K3 on home's stream, every K1/K2
-    pass in two parts, one on home's stream); the one group with
-    ``enable_icp``: the bits of (o)'s ``enable_icp`` batch, K2 twice (o)'s.
+    launches by group thread and stream (extraction's graph on home's
+    stream, every K1/K2 pass in two parts, one on home's stream); the one
+    group with ``enable_icp``: the bits of (o)'s ``enable_icp`` batch, K2
+    twice (o)'s.
 (r) the evaluation suite (``python -m plade_tpu_torch.tools.run_eval``'s
     work, in this process): its 8 scenes of 60000-point scans, 41
     consecutive pairs x 3 repeats (seed ``1000 * rep``, odd repeats in
     reverse pair order), each scene one lockstep batch through
     ``evaluate_scene(device_batch=True)`` at the default ``PladeConfig()``:
     per scene the recall of each repeat, RMSE, s/pair, peak memory, the
-    K1/K2/K3 launches with their shapes and lanes and the truncation
+    K1/K2/K3 launches with K1/K2's shapes and the truncation
     counters summed over its pairs (each failed pair and each nonzero
     counter printed); fails on an exception, a kernel not launched in a
     scene, a transform not finite, or an overall recall below the reference
@@ -1235,6 +1242,67 @@ def recorded_calls(module, name, keep):
 
 
 @contextlib.contextmanager
+def eager_k3_calls(keep):
+    """A labelled eager run: inside the block extraction runs its eager
+    loop, as on the CPU, whose every pass calls K3's wrapper, and
+    ``keep(args, out)`` of each K3 call is recorded in call order.  On the
+    card's main path a pass is a replay of extraction's CUDA graph, which
+    calls no wrapper; so K3's inputs and lanes come from such a run, and
+    each section that takes them holds the run's extractions, bit for bit,
+    to its main-path run's on the same generators."""
+    from plade_tpu_torch.extract import ransac
+    real = ransac._use_graph
+    ransac._use_graph = lambda points: False
+    try:
+        with recorded_calls(ransac, "close_and_label_lanes", keep) as seen:
+            yield seen
+    finally:
+        ransac._use_graph = real
+
+
+@contextlib.contextmanager
+def extraction_counts():
+    """The extraction counters (``extract.*``: passes, cloud-passes,
+    frozen, graph replays and captures) of the work inside the block, read
+    from one recorder call around it; the entries inside, and their shard
+    threads, join that call."""
+    from plade_tpu_torch.utils import timing
+    counts = {}
+    with timing.call("chip_smoke", 0) as c:
+        yield counts
+    counts.update({k: v for k, v in c.counters.items()
+                   if k.startswith("extract.")})
+
+
+def check_graph_passes(tag, k3, counts, clouds, problems):
+    """The main path's extraction on the card (``counts``: one
+    :func:`extraction_counts`): K3 launched (credited at each replay) once
+    a lockstep pass, every pass captured or replayed from extraction's
+    CUDA graph, each over ``clouds`` clouds (None: any).  Adds what fails
+    to ``problems``; returns the passes."""
+    rounds = counts.get("extract.rounds", 0)
+    graph = counts.get("extract.graph_rounds", 0) \
+        + counts.get("extract.graph_captures", 0)
+    if not rounds or k3 != rounds or graph != rounds or (
+            clouds is not None
+            and counts.get("extract.cloud_rounds") != clouds * rounds):
+        problems.append(f"{tag} K3 {k3} launches, extraction counters "
+                        f"{counts}: not one launch a graph pass over "
+                        f"{clouds} clouds")
+    return rounds
+
+
+def same_bits(a, b) -> bool:
+    """Whether two (planes, stats) pairs, or transforms, are the same
+    bits."""
+    if torch.is_tensor(a):
+        return torch.equal(a, b)
+    if isinstance(a, np.ndarray):
+        return np.array_equal(a, b)
+    return len(a) == len(b) and all(same_bits(x, y) for x, y in zip(a, b))
+
+
+@contextlib.contextmanager
 def kernel_calls(name, keep):
     """Records ``keep(tensors, None)`` of every call of the K1 or K2
     wrapper ``name`` (``kernels.nn``) made inside the ``with`` block, in
@@ -1263,10 +1331,12 @@ def check_register_clouds(tp, tn, sp, sn, R, t, gen, cfg, device):
     scene's planes; pose error, counters, kernel launches (returned) and
     host syncs of the first timed run, whose extractions are the ones
     checked.  (g) ``register_files`` on the same clouds written as PLY must
-    give the same transform.  Returns a dict: that run's ``launches``, the
-    (occ, iters) of each K3 launch (``k3_grids``), its ``extractions``
-    ((planes, stats) per cloud), its transform ``T``, (g)'s transform
-    ``files_T``, and the ``walls``."""
+    give the same transform.  K3's inputs come from one more run with
+    extraction on its eager loop (:func:`eager_k3_calls`), whose
+    extractions and transform must be the first timed run's bits.  Returns
+    a dict: that run's ``launches``, the (occ, iters) of each K3 launch
+    (``k3_grids``), its ``extractions`` ((planes, stats) per cloud), its
+    transform ``T``, (g)'s transform ``files_T``, and the ``walls``."""
     from plade_tpu_torch import pipeline
     from plade_tpu_torch.core import types as ptypes
     from plade_tpu_torch.extract import ransac
@@ -1285,12 +1355,11 @@ def check_register_clouds(tp, tn, sp, sn, R, t, gen, cfg, device):
         if run == 0:
             reset_counts()
         # the first timed run also keeps each prepared cloud's live
-        # downsampled count and each K3 input (device tensors: no sync)
+        # downsampled count (device tensors: no sync)
         with recorded_extractions(ransac) as seen, \
                 recorded_calls(pipeline, "prepare_cloud",
                                lambda a, out: out.ds.count) as ds_counts, \
-                recorded_calls(ransac, "close_and_label_lanes",
-                               lambda a, out: (a[0].clone(), a[1])) as grids:
+                extraction_counts() as counts:
             sync()
             t0 = time.perf_counter()
             T, info = register_clouds(tp, tn, sp, sn, cfg, seed=0,
@@ -1302,7 +1371,15 @@ def check_register_clouds(tp, tn, sp, sn, R, t, gen, cfg, device):
             syncs = ptypes.HOST_SYNCS["count"]
             extractions = seen
             live = [int(c) for c in ds_counts]
-            k3_grids = grids
+            first_counts, first_T = counts, T
+    # K3's inputs: the same registration with extraction's eager loop
+    with eager_k3_calls(lambda a, out: (a[0].clone(), a[1])) as k3_grids, \
+            recorded_extractions(ransac) as eager:
+        T_eager, _ = register_clouds(tp, tn, sp, sn, cfg, seed=0,
+                                     device=device)
+    if not same_bits(eager, extractions) or not same_bits(T_eager, first_T):
+        fail("[f] the eager loop's extractions or transform differ from "
+             "the main path's")
     check_result("[f]", T, info)
     if info["swapped"] or len(extractions) != 2:
         fail(f"[f] {len(extractions)} extractions (swapped "
@@ -1356,11 +1433,20 @@ def check_register_clouds(tp, tn, sp, sn, R, t, gen, cfg, device):
     for key in ("match_saturated", "pen_overflow", "cluster_truncated"):
         if info[key] != 0:
             fail(f"[f] {key} = {info[key]}")
+    print(f"[f] extraction counters {first_counts}; the eager loop: "
+          f"{len(k3_grids)} K3 calls, the main path's extractions and "
+          "transform bit for bit", flush=True)
     if torch.device(device).type == "cuda":
-        # one K3 launch per extraction round of each cloud
-        if launches["close_and_label_lanes"] != sum(rounds):
-            fail(f"[f] K3 launched {launches['close_and_label_lanes']} "
-                 f"times, not once per round of {rounds}")
+        # one K3 launch per extraction round of each cloud, every round on
+        # the graph, and one K3 call per round of the eager loop
+        problems = []
+        if check_graph_passes("[f]", launches["close_and_label_lanes"],
+                              first_counts, 1, problems) != sum(rounds) \
+                or len(k3_grids) != sum(rounds):
+            problems.append(f"[f] {len(k3_grids)} eager K3 calls, rounds "
+                            f"{rounds}")
+        if problems:
+            fail("; ".join(problems))
         if launches["oriented_min_dist_sq"] < 2 \
                 or launches["nearest_neighbor"] < 4:
             fail(f"[f] kernel launches {launches} below K1 >= 2, K2 >= 4")
@@ -1449,7 +1535,9 @@ def check_device_step(scene, cfg, clouds_run, clouds_table):
     """(i) the device step on the scene of (c) at ``cfg``: one warm-up and
     three timed runs; the first timed run's extraction against (f)'s
     (``clouds_run``), its transform within 1e-4 of (f)'s, pose error,
-    counters, K3 launches (one per lockstep round, each over 2 x 6 lanes),
+    counters, K3 launches (one per lockstep round, each over 2 x 6 lanes:
+    the lanes, and ``k3_grids``, from one more run with extraction's eager
+    loop, :func:`eager_k3_calls`, which must give the first run's bits),
     K1/K2 launches, host syncs, wall and peak memory beside
     ``register_clouds``', and one profiled step (its kernels beside
     ``clouds_table``'s, (h)).  Returns a dict: the padded clouds, the
@@ -1475,10 +1563,9 @@ def check_device_step(scene, cfg, clouds_run, clouds_table):
             reset_counts()
             torch.cuda.reset_peak_memory_stats()
         with recorded_extractions(ransac) as seen, \
-                recorded_calls(ransac, "close_and_label_lanes",
-                               lambda a, out: (a[0].clone(), a[1])) as grids, \
                 recorded_calls(pipeline, "prepare_cloud",
-                               lambda a, out: (out, a[2])) as preps:
+                               lambda a, out: (out, a[2])) as preps, \
+                extraction_counts() as counts:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             res = step(tgt, src, 0)
@@ -1488,24 +1575,38 @@ def check_device_step(scene, cfg, clouds_run, clouds_table):
             launches = dict(nn.LAUNCHES)
             syncs = ptypes.HOST_SYNCS["count"]
             peak = torch.cuda.max_memory_allocated()
-            first, k3_grids, prepared = res, grids, preps
-    res = first
+            first, first_seen, first_counts, prepared = res, seen, counts, \
+                preps
+    res, seen = first, first_seen
     if len(seen) != 1:
         fail(f"[i] {len(seen)} extraction calls, expected one lockstep call")
     (planes, stats), = seen
     rounds = stats.rounds.tolist()
+    # K3's inputs and lanes: the same step with extraction's eager loop
+    with eager_k3_calls(lambda a, out: (a[0].clone(), a[1])) as k3_grids, \
+            recorded_extractions(ransac) as eager:
+        res_eager = step(tgt, src, 0)
     lanes = [int(o.shape[0]) for o, _ in k3_grids]
     print(f"[i] register_pair_device: lockstep extraction rounds (target, "
           f"source) {rounds}, planes extracted "
-          f"{planes.count.tolist()}; K3 launches {len(k3_grids)} over lanes "
-          f"{sorted(set(lanes))}", flush=True)
+          f"{planes.count.tolist()}; K3 launches "
+          f"{launches['close_and_label_lanes']}, extraction counters "
+          f"{first_counts}; the eager loop: {len(k3_grids)} K3 calls over "
+          f"lanes {sorted(set(lanes))}", flush=True)
+    problems = []
+    check_graph_passes("[i]", launches["close_and_label_lanes"],
+                       first_counts, 2, problems)
     if len(k3_grids) != max(rounds) or set(lanes) != \
             {2 * cfg.ransac_exact_lanes}:
-        fail(f"[i] K3 launches {lanes}: not one per lockstep round "
-             f"({max(rounds)}) at L = {2 * cfg.ransac_exact_lanes}")
-    if launches["close_and_label_lanes"] != len(k3_grids):
-        fail(f"[i] K3 counted {launches['close_and_label_lanes']} launches, "
-             f"recorded {len(k3_grids)}")
+        problems.append(f"[i] eager K3 calls {lanes}: not one per lockstep "
+                        f"round ({max(rounds)}) at L = "
+                        f"{2 * cfg.ransac_exact_lanes}")
+    if not same_bits(eager, seen) \
+            or not same_bits(res_eager.transform, res.transform):
+        problems.append("[i] the eager loop's extraction or transform "
+                        "differs from the main path's")
+    if problems:
+        fail("; ".join(problems))
     diffs = []
     for c, (side, (p1, s1)) in enumerate(zip(("target", "source"),
                                              clouds_run["extractions"])):
@@ -1688,20 +1789,18 @@ def check_array_pairs(cfg):
     """(l) ``register_array_pairs`` on 4 distinct synthetic scan pairs at
     the settings of ``bench.py``'s batch pairs: every pair succeeds; pose
     errors against the scans' ground truth are printed; the pairs run in
-    one lockstep batch (K2 4 launches, K3 one a lockstep round over 4 x 2 x
-    6 lanes).  Returns the run's launches."""
+    one lockstep batch (K2 4 launches, K3 one a lockstep pass over 4 x 2
+    clouds).  Returns the run's launches."""
     from plade_tpu_torch.dist.mesh import register_array_pairs
-    from plade_tpu_torch.extract import ransac
     from plade_tpu_torch.kernels import nn
     pairs, truth = scan_pairs(cfg)
     reset_counts()
     t0 = time.perf_counter()
-    with recorded_calls(ransac, "close_and_label_lanes",
-                        lambda a, out: a[0].shape[0]) as lanes:
+    with extraction_counts() as counts:
         outs = register_array_pairs(pairs, cfg, seed=0)
     wall = time.perf_counter() - t0
     launches = dict(nn.LAUNCHES)
-    check_lockstep("[l]", launches, lanes, len(pairs), cfg)
+    check_lockstep("[l]", launches, counts, len(pairs), cfg)
     for i, (o, gt) in enumerate(zip(outs, truth)):
         rot, trans = pose_errors(o.transform, gt[:3, :3], gt[:3, 3])
         print(f"[l] pair {i}: {pairs[i][0].shape[0]} / "
@@ -1719,21 +1818,23 @@ def check_array_pairs(cfg):
     return launches
 
 
-def check_lockstep(tag, launches, lanes, pairs: int, cfg):
-    """The launches of one lockstep batch of ``pairs`` pairs: K2 once a
-    pass of the rescore ICP (``rescore_icp_iters`` + 1) and K3 once a
-    lockstep round over every cloud's lanes (2 x pairs x
-    ``ransac_exact_lanes``); fails otherwise."""
-    L = 2 * pairs * cfg.ransac_exact_lanes
+def check_lockstep(tag, launches, counts, pairs: int, cfg):
+    """The launches of one lockstep batch of ``pairs`` pairs (``counts``:
+    its :func:`extraction_counts`): K2 once a pass of the rescore ICP
+    (``rescore_icp_iters`` + 1) and K3 once a lockstep pass of
+    extraction's graph over every cloud (2 x pairs); fails otherwise."""
     k2 = cfg.rescore_icp_iters + 1
     print(f"{tag} one lockstep batch of {pairs} pairs: K2 "
           f"{launches['nearest_neighbor']} launches (expected {k2}), K1 "
-          f"{launches['oriented_min_dist_sq']}, K3 {len(lanes)} over lanes "
-          f"{sorted(set(lanes))} (expected L = {L})", flush=True)
-    if launches["nearest_neighbor"] != k2 or set(lanes) != {L} \
-            or launches["close_and_label_lanes"] != len(lanes):
-        fail(f"{tag} not one lockstep batch: launches {launches}, K3 lanes "
-             f"{lanes}")
+          f"{launches['oriented_min_dist_sq']}, K3 "
+          f"{launches['close_and_label_lanes']}; extraction counters "
+          f"{counts} (expected {2 * pairs} clouds a pass)", flush=True)
+    problems = []
+    check_graph_passes(tag, launches["close_and_label_lanes"], counts,
+                       2 * pairs, problems)
+    if launches["nearest_neighbor"] != k2 or problems:
+        fail(f"{tag} not one lockstep batch: launches {launches}; "
+             + "; ".join(problems))
 
 
 def result_matrices(path: str, count: int):
@@ -1921,17 +2022,15 @@ def check_cli(scene, files_T, cfg):
                 names.append(str(tmp / f"pair{i}_{side}.ply"))
                 write_ply(names[-1], p, n)
         pairs_file.write_text("\n".join(names) + "\n")
-        from plade_tpu_torch.extract import ransac
         for path, extra in (("cli_batch", []),
                             ("cli_device_batch", ["--device-batch"])):
             out = str(tmp / f"{path}.txt")
-            with recorded_calls(ransac, "close_and_label_lanes",
-                                lambda a, out: a[0].shape[0]) as lanes:
+            with extraction_counts() as counts:
                 paths[path], wall = run_cli(f"[m] {path}",
                                             [str(pairs_file), out] + extra,
                                             problems)
             if extra:
-                check_lockstep("[m] --device-batch", paths[path], lanes,
+                check_lockstep("[m] --device-batch", paths[path], counts,
                                len(pairs), cfg)
             errs = []
             for k, ((_, _, T), gt) in enumerate(
@@ -1976,7 +2075,6 @@ def check_scene(cfg):
     ``posegraph.synchronize`` on the run's edges on the card and on the CPU
     within 1e-4.  Returns the launches by path."""
     from plade_tpu_torch.dist import posegraph
-    from plade_tpu_torch.extract import ransac
     from plade_tpu_torch.io.synthetic import make_scan_sequence, write_scene
     n = 5
     scans, poses = make_scan_sequence(
@@ -1992,15 +2090,14 @@ def check_scene(cfg):
             out = str(Path(tmp) / f"{path}.txt")
             with recorded_calls(posegraph, "from_edges",
                                 lambda a, out: a[0]) as graphs, \
-                    recorded_calls(ransac, "close_and_label_lanes",
-                                   lambda a, out: a[0].shape[0]) as lanes:
+                    extraction_counts() as counts:
                 paths[path], wall = run_cli(
                     f"[n] {path}", ["scene", d, out, "--loop-stride", "2"]
                     + extra, problems)
             edges, = graphs
             if extra:
                 check_lockstep("[n] scene --device-batch", paths[path],
-                               lanes, 7, cfg)
+                               counts, 7, cfg)
             lines = Path(out).read_text().splitlines()
             errs = []
             for k in range(n):
@@ -2047,11 +2144,12 @@ def check_batch(scene, cfg, per_clock: float, old_k3, step_run):
     at B = 1 (pair after pair, the single-pair step), 2, 4 and 8, one
     warm-up and three timed runs each, each fenced by a host read of the
     results; the peak memory of each B's timed runs.  The first timed B = 8
-    run counts launches (K2 and K1 shapes, K3 grids and lanes) and host
+    run counts launches (K2 and K1 shapes, K3 once a graph pass) and host
     syncs; every pair within the pose limits at B = 8, within 1e-4 of its
-    B = 1 transform with the same success.  Then one profiled B = 8 batch
-    (stage table, kernels a batch), K3 on the counted run's grids as in
-    (f), and one ``enable_icp`` batch (K2 at 8 x 16384 x 16384).  Returns
+    B = 1 transform with the same success.  K3's grids and lanes come from
+    the same batch with extraction's eager loop (:func:`eager_k3_calls`),
+    which must give the counted run's bits.  Then one profiled B = 8 batch
+    (stage table, kernels a batch), K3 on those grids as in (f), and one ``enable_icp`` batch (K2 at 8 x 16384 x 16384).  Returns
     (the counted run's launches, launches per (kernel, shape), the K3
     row, a dict for (p): the 8 pairs with their ground truth, padded size
     and padded clouds on the card, the B = 1, 4 and 8 transforms and
@@ -2119,7 +2217,8 @@ def check_batch(scene, cfg, per_clock: float, old_k3, step_run):
               f"{bases[B] / 2**20:.1f} MiB held before); {card}", flush=True)
 
     # one more B = 8 run, untimed, with every count at 0 and the kernels'
-    # shapes and K3's grids recorded
+    # shapes recorded; then K3's grids from the same batch with
+    # extraction's eager loop, which must give that run's bits
     reset_counts()
     with kernel_calls("nearest_neighbor",
                       lambda a, out: tuple(a[0].shape[:-1])
@@ -2127,13 +2226,18 @@ def check_batch(scene, cfg, per_clock: float, old_k3, step_run):
             kernel_calls("oriented_min_dist_sq",
                          lambda a, out: tuple(a[0].shape[:-1])
                          + (a[2].shape[-2],)) as k1_shapes, \
-            recorded_calls(ransac, "close_and_label_lanes",
-                           lambda a, out: (a[0].clone(), a[1])) as grids, \
-            recorded_extractions(ransac) as seen:
-        run(BATCH)
+            recorded_extractions(ransac) as seen, \
+            extraction_counts() as counts:
+        T_main = run(BATCH)[0]
         torch.cuda.synchronize()
     launches = dict(nn.LAUNCHES)
+    with eager_k3_calls(lambda a, out: (a[0].clone(), a[1])) as grids, \
+            recorded_extractions(ransac) as eager:
+        T_eager = run(BATCH)[0]
     problems = []
+    if not same_bits(eager, seen) or not same_bits(T_eager, T_main):
+        problems.append("[o] the eager loop's extraction or transforms "
+                        "differ from the main path's")
     T8, ok8, res8 = results[BATCH]
     T1, ok1, _ = results[1]
     for i, ((Rg, tg), name) in enumerate(zip(truth, ["room"] + [
@@ -2161,19 +2265,22 @@ def check_batch(scene, cfg, per_clock: float, old_k3, step_run):
             key = (name, "x".join(map(str, shape)))
             by_shape[key] = by_shape.get(key, 0) + 1
     print(f"[o] B = {BATCH}, one batch: launches {launches}; K2 shapes "
-          f"(P, Q, T) {k2_shapes}; K1 shapes {k1_shapes}; K3 "
-          f"{len(grids)} launches over lanes {lanes}, lockstep rounds of the "
-          f"{2 * BATCH} clouds {rounds}; host syncs {syncs[BATCH]} (the step "
-          f"at B = 1 in (i): {step_run['syncs']} a pair)", flush=True)
+          f"(P, Q, T) {k2_shapes}; K1 shapes {k1_shapes}; extraction "
+          f"counters {counts}; the eager loop: {len(grids)} K3 calls over "
+          f"lanes {lanes}, lockstep rounds of the {2 * BATCH} clouds "
+          f"{rounds}; host syncs {syncs[BATCH]} (the step at B = 1 in (i): "
+          f"{step_run['syncs']} a pair)", flush=True)
     if k2_shapes != [K2_BATCH_SHAPES[0]] * (cfg.rescore_icp_iters + 1):
         problems.append(f"[o] K2 launches {k2_shapes}")
     if not k1_shapes or {s[0] for s in k1_shapes} != {BATCH} \
             or K1_BATCH_SHAPES[1] not in k1_shapes:
         problems.append(f"[o] K1 launches {k1_shapes}")
-    if lanes != [L] or len(grids) != max(rounds) \
-            or launches["close_and_label_lanes"] != len(grids):
-        problems.append(f"[o] K3 {len(grids)} launches over lanes {lanes}, "
-                        f"not one a lockstep round ({max(rounds)}) at L = {L}")
+    check_graph_passes("[o]", launches["close_and_label_lanes"], counts,
+                       2 * BATCH, problems)
+    if lanes != [L] or len(grids) != max(rounds):
+        problems.append(f"[o] eager K3 {len(grids)} calls over lanes "
+                        f"{lanes}, not one a lockstep round ({max(rounds)}) "
+                        f"at L = {L}")
     if min(launches.values()) < 1:
         problems.append(f"[o] a kernel was not launched: {launches}")
     if problems:
@@ -2192,7 +2299,7 @@ def check_batch(scene, cfg, per_clock: float, old_k3, step_run):
           f"{syncs[BATCH]}", flush=True)
     k3_row = k3_main_path(cc, grids, per_clock, old_k3, tag="[o]")
     k3_row["path"] = "register_batch"
-    k3_row["launches"] = len(grids)
+    k3_row["launches"] = launches["close_and_label_lanes"]
 
     # the final ICP of a batch: K2 icp_iters + 1 times over all pairs
     cfg_icp = dataclasses.replace(cfg, enable_icp=True)
@@ -2229,25 +2336,20 @@ WORLD_PAIRS = ((0, 5), (5, 8))
 WORKER_TIMEOUT = 300
 
 
-def shard_launches(tag, k2, k1, k3, pairs: int, cfg, problems):
+def shard_launches(tag, k2, k1, pairs: int, cfg, problems):
     """The launches of each shard of a mesh run, told apart by the CUDA
-    stream they ran on (``k2``, ``k1``, ``k3``: (pairs or lanes, stream) a
-    launch): each shard one lockstep batch of ``pairs`` pairs (K2
-    ``rescore_icp_iters`` + 1 launches, K1 at least one, K3 over 2 x
-    ``pairs`` x ``ransac_exact_lanes`` lanes).  Returns the launches by
-    stream."""
-    streams = {s for _, s in k2 + k1 + k3}
+    stream they ran on (``k2``, ``k1``: (pairs, stream) a launch): each
+    shard one lockstep batch of ``pairs`` pairs (K2 ``rescore_icp_iters``
+    + 1 launches, K1 at least one).  Returns the launches by stream."""
+    streams = {s for _, s in k2 + k1}
     by = {s: {name: [n for n, s2 in calls if s2 == s] for name, calls in
-              (("K2", k2), ("K1", k1), ("K3", k3))} for s in streams}
-    L = 2 * pairs * cfg.ransac_exact_lanes
+              (("K2", k2), ("K1", k1))} for s in streams}
     counts = {hex(s): {k: len(v) for k, v in c.items()}
               for s, c in by.items()}
-    print(f"{tag} launches by shard stream: {counts}; K3 lanes "
-          f"{sorted({n for n, _ in k3})} (expected {L})", flush=True)
+    print(f"{tag} launches by shard stream: {counts}", flush=True)
     for s, c in by.items():
         if len(c["K2"]) != cfg.rescore_icp_iters + 1 or not c["K1"] \
-                or set(c["K2"] + c["K1"]) != {pairs} or not c["K3"] \
-                or set(c["K3"]) != {L}:
+                or set(c["K2"] + c["K1"]) != {pairs}:
             problems.append(f"{tag} shard stream {hex(s)}: not one lockstep "
                             f"batch of {pairs} pairs: {c}")
     return by
@@ -2348,16 +2450,15 @@ def host_tensors(x) -> list:
 
 def repro_stages():
     """The functions whose outputs (p) compares between runs of one batch,
-    as (module, name), in the step's order: K3 and the plane selection of
-    the extraction, spacing, the voxel grids and the prepared clouds, the
+    as (module, name), in the step's order: the plane selection of the
+    extraction (K3 runs inside extraction's CUDA graph), spacing, the voxel grids and the prepared clouds, the
     matching, clustering and consistency, the penetration tests, the
     overlap, the rescore's ICP and counts, and the registration."""
     from plade_tpu_torch import pipeline
     from plade_tpu_torch.extract import ransac
     from plade_tpu_torch.match import matching
     from plade_tpu_torch.verify import overlap, penetration
-    return ((ransac, "close_and_label_lanes"),
-            (ransac, "select_planes_device"), (pipeline, "average_spacing"),
+    return ((ransac, "select_planes_device"), (pipeline, "average_spacing"),
             (pipeline, "voxel_downsample"),
             (pipeline, "voxel_downsample_by_plane"),
             (pipeline, "prepare_cloud"), (matching, "match_descriptors"),
@@ -2515,11 +2616,19 @@ def check_mesh(cfg, batch_run):
                       stream_of(lambda a: a[0].shape[0])) as k2, \
             kernel_calls("oriented_min_dist_sq",
                          stream_of(lambda a: a[0].shape[0])) as k1, \
-            recorded_calls(ransac, "close_and_label_lanes",
-                           stream_of(lambda a: a[0].shape[0])) as k3:
+            extraction_counts() as counts:
         run2()
         torch.cuda.synchronize()
     paths["mesh_two_shards"] = dict(nn.LAUNCHES)
+    # K3 inside each shard's extraction graph: once a pass over a shard's
+    # 2 x 4 clouds; each shard's stream keeps its own graph
+    check_graph_passes("[p] two shards:",
+                       paths["mesh_two_shards"]["close_and_label_lanes"],
+                       counts, BATCH, problems)
+    graph_streams = {s.cuda_stream for s in ransac._GRAPHS}
+    print(f"[p] two shards: extraction counters {counts}; streams holding "
+          f"a pass graph {sorted(hex(s) for s in graph_streams)}",
+          flush=True)
     against_b1("[p] two shards:", T2, ok2)
     # each shard runs one of (o)'s B = 4 batches
     same4 = np.array_equal(T2, batch_run["T4"]) and ok2 == batch_run["ok4"]
@@ -2527,10 +2636,11 @@ def check_mesh(cfg, batch_run):
           f"{float(np.abs(T2 - batch_run['T4']).max()):.3e})", flush=True)
     if not same4:
         problems.append("[p] two shards differ from (o)'s B = 4 batches")
-    by = shard_launches("[p] two shards:", k2, k1, k3, BATCH // 2, cfg,
+    by = shard_launches("[p] two shards:", k2, k1, BATCH // 2, cfg,
                         problems)
-    if len(by) != 2:
-        problems.append(f"[p] two shards ran on {len(by)} streams")
+    if len(by) != 2 or not set(by) <= graph_streams:
+        problems.append(f"[p] two shards ran on {len(by)} streams, not each "
+                        "with its pass graph")
     pp = statistics.median(walls) * 1e3 / BATCH
     print(f"[p] two shards on cuda:0: wall per pair (median of 3) {pp:.1f} "
           f"ms, runs {[round(w * 1e3, 1) for w in walls]} ms for {BATCH} "
@@ -2729,11 +2839,12 @@ def check_intra(cfg, batch_run):
     bits of (o)'s B = 8 batch) and ``["cuda:0"] * 4, intra=2`` (two groups
     of 4 pairs: the bits of (o)'s B = 4 batches): one warm-up, three timed
     runs (the wall per pair, the host syncs of the first, the peak memory),
-    then one run with every count at 0 and each K1/K2/K3 launch's thread
-    and stream recorded: in each group K3 on home's stream only, K1 and K2
-    as many launches on home's stream as on the others' (every pass split
-    in two), the same host syncs as (o), and the device memory each
-    stream holds (``torch.cuda.memory_snapshot``).
+    then one run with every count at 0 and each K1/K2 launch's thread
+    and stream recorded: in each group K1 and K2 as many launches on
+    home's stream as on the others' (every pass split in two), K3 once a
+    pass of extraction's graph, which home's stream holds and no other
+    part's, the same host syncs as (o), and the device memory each stream
+    holds (``torch.cuda.memory_snapshot``).
     Last the one group with ``enable_icp`` (the final ICP's K2 split too):
     the bits of (o)'s ``enable_icp`` batch.  Returns the launches by
     path."""
@@ -2782,19 +2893,31 @@ def check_intra(cfg, batch_run):
         reset_counts()
         with kernel_calls("nearest_neighbor", where) as k2, \
                 kernel_calls("oriented_min_dist_sq", where) as k1, \
-                recorded_calls(ransac, "close_and_label_lanes",
-                               where) as k3:
+                extraction_counts() as counts:
             run(m)
             torch.cuda.synchronize()
         paths[path] = dict(nn.LAUNCHES)
-        homes = {th: s for th, s in k3}
+        # a group's home stream is its shard's; K3 runs inside extraction's
+        # pass graph, which only home streams hold
+        shard_streams = {x.cuda_stream for x in mesh_mod._STREAMS.values()}
+        helper_streams = {x.cuda_stream
+                          for x in intra_mod._STREAMS.values()}
+        graph_streams = {x.cuda_stream for x in ransac._GRAPHS}
+        homes = {th: s for th, s in k2 if s in shard_streams}
+        check_graph_passes(f"[q] {path}:",
+                           paths[path]["close_and_label_lanes"], counts,
+                           2 * BATCH // groups, problems)
+        if graph_streams & helper_streams \
+                or not set(homes.values()) <= graph_streams:
+            problems.append(f"[q] {path}: pass graphs on streams "
+                            f"{sorted(map(hex, graph_streams))}, homes "
+                            f"{sorted(map(hex, homes.values()))}")
         by = {}
         for th, home in homes.items():
             by[th] = {name: {"home": sum(c == (th, home) for c in calls),
                              "others": sum(c[0] == th and c[1] != home
                                            for c in calls)}
-                      for name, calls in (("K2", k2), ("K1", k1),
-                                          ("K3", k3))}
+                      for name, calls in (("K2", k2), ("K1", k1))}
         same = np.array_equal(T, batch_run["T" + want]) \
             and ok == batch_run["ok" + want]
         pp = statistics.median(walls) * 1e3 / BATCH
@@ -2825,10 +2948,9 @@ def check_intra(cfg, batch_run):
             problems.append(f"[q] {path}: host syncs {syncs}, (o) "
                             f"{want_syncs} + {8 * groups} copies")
         if len(by) != groups:
-            problems.append(f"[q] {path}: K3 on {len(by)} group threads")
+            problems.append(f"[q] {path}: {len(by)} group threads")
         for c in by.values():
-            if c["K3"]["others"] or not c["K3"]["home"] \
-                    or c["K2"]["home"] != cfg.rescore_icp_iters + 1 \
+            if c["K2"]["home"] != cfg.rescore_icp_iters + 1 \
                     or c["K2"]["others"] != c["K2"]["home"] \
                     or not c["K1"]["home"] \
                     or c["K1"]["others"] != c["K1"]["home"]:
@@ -2871,16 +2993,17 @@ def check_eval_suite(cfg, per_clock: float, old_k3):
     consecutive pair through ``evaluate_scene(device_batch=True)`` on the
     card at ``cfg`` (the default ``PladeConfig()``).  Per scene: the recall
     of each repeat, the RMSE, s/pair, the peak memory, the K1/K2/K3
-    launches (with K1/K2's shapes and K3's lanes) and the truncation
+    launches (with K1/K2's shapes; K3 once a pass of extraction's graph)
+    and the truncation
     counters summed over its pairs; each kernel launched in every scene,
     every transform finite.  The overall recall must reach the reference
     binary's (``REF_EVAL.json``).  The per-pair results go to
     ``chiprun_out/eval_smoke.{md,json}``.  Then K1/K2 at
     ``EVAL_TIMED_SCENE``'s shapes as in (b), and K3 on the grids of that
-    scene's first repeat as in (f).  Returns (the suite's launches, the
-    rows of the kernels' JSON line, ``"path": "eval_suite"``)."""
-    from plade_tpu_torch.extract import ransac
-    from plade_tpu_torch.io import resso
+    scene's first repeat as in (f) (from the repeat run once more with
+    extraction's eager loop, which must give its transforms' bits).
+    Returns (the suite's launches, the rows of the kernels' JSON line,
+    ``"path": "eval_suite"``)."""
     from plade_tpu_torch.kernels import cc, nn
     from plade_tpu_torch.tools import run_eval
     card = gpu_info()
@@ -2908,12 +3031,7 @@ def check_eval_suite(cfg, per_clock: float, old_k3):
                     kernel_calls("oriented_min_dist_sq",
                                  lambda a, out: tuple(a[0].shape[:-1])
                                  + (a[2].shape[-2],)) as k1, \
-                    recorded_calls(resso, "evaluate_scene",
-                                   lambda a, out: None) as reps, \
-                    recorded_calls(ransac, "close_and_label_lanes",
-                                   lambda a, out: (a[0].clone(), a[1])
-                                   if keep and not reps else
-                                   (a[0].shape[0], None)) as grids:
+                    extraction_counts() as ecounts:
                 try:
                     run = run_eval.run_scene(sc, cfg, "cuda",
                                              run_eval.REPEATS, base)
@@ -2929,11 +3047,23 @@ def check_eval_suite(cfg, per_clock: float, old_k3):
                     key = (kname, "x".join(map(str, shape)))
                     by_shape[key] = by_shape.get(key, 0) + 1
             if keep:
+                # K3's grids: the scene's first repeat once more with
+                # extraction's eager loop, which must give its bits
+                with eager_k3_calls(lambda a, out: (a[0].clone(), a[1])) \
+                        as grids:
+                    again = run_eval.run_scene(sc, cfg, "cuda", 1, base)
+                if not same_bits(
+                        np.asarray([p["transform"]
+                                    for p in again.results[0]]),
+                        np.asarray([p["transform"]
+                                    for p in run.results[0]])):
+                    problems.append(f"[r] {name}: the eager loop's "
+                                    "transforms differ from the main path's")
                 timed = dict(k2=sorted(set(k2)), k1=sorted(set(k1)),
-                             grids=[g for g in grids
-                                    if torch.is_tensor(g[0])])
-            lanes = sorted({g[0].shape[0] if torch.is_tensor(g[0]) else g[0]
-                            for g in grids})
+                             grids=grids)
+            check_graph_passes(f"[r] {name}:",
+                               counts["close_and_label_lanes"], ecounts,
+                               None, problems)
             c = run.counters
             print(f"[r] {name}{' (holdout)' if sc['holdout'] else ''}: "
                   f"{run.pairs} pairs, recall {run.recall:.3f} (repeats "
@@ -2946,7 +3076,8 @@ def check_eval_suite(cfg, per_clock: float, old_k3):
                   f"before; launches K2 {counts['nearest_neighbor']} at "
                   f"{sorted(set(k2))}, K1 {counts['oriented_min_dist_sq']} "
                   f"at {sorted(set(k1))}, K3 {counts['close_and_label_lanes']}"
-                  f" over lanes {lanes}; counters {c}; {card}", flush=True)
+                  f"; extraction counters {ecounts}; counters {c}; {card}",
+                  flush=True)
             for rep, res in enumerate(run.results):
                 for p in res:
                     if not np.isfinite(p["transform"]).all():

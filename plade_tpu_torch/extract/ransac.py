@@ -21,6 +21,18 @@ keeps its semantics operation for operation; where PyTorch differs:
   of ``done`` spans of their own; the call counts the passes
   (``extract.rounds``), the clouds they computed (``extract.cloud_rounds``)
   and those of them already done (``extract.frozen``).
+* On a card a pass is one CUDA graph (:class:`_PassGraph`): its round has
+  fixed shapes and reads nothing on the host, so it is captured once per
+  extractor, stream, cloud count and floor support and replayed each pass,
+  instead of some two thousand launches enqueued from Python.  A stream
+  keeps one graph, whose memory pool holds about a round's working set
+  (:func:`_pass_graph`).  The draws stay outside it, eager, and are
+  copied into its static buffers.  The first pass of a new graph runs
+  eagerly (the warm-up) before the capture; the call counts the replayed
+  passes (``extract.graph_rounds``) and the captures
+  (``extract.graph_captures``).  On the CPU, and under a capture the
+  caller already runs, the passes run eagerly.  Both paths run the same
+  :func:`build_extract_fn` pass, bit for bit.
 * ``top_k``, ``approx_max_k`` (exact off the TPU) and ``argsort`` keep the
   lower index first among ties, as JAX does: they are stable sorts here.
 * ``.at[idx].set(..., mode="drop")`` scatters into a buffer one slot
@@ -46,6 +58,7 @@ from __future__ import annotations
 
 import functools
 import math
+import threading
 from typing import Callable, NamedTuple
 
 import torch
@@ -55,6 +68,7 @@ from ..core.ops import drop, lift, take
 from ..core.types import PlaneSet, host_value
 from ..geometry.eig3 import smallest_eigvec3
 from ..geometry.transforms import cross
+from ..kernels.build import captured_launches, credit_launches
 from ..kernels.cc import close_and_label_lanes
 from ..utils import timing
 
@@ -265,6 +279,114 @@ def _thresholds_on(cfg: PladeConfig, device) -> torch.Tensor:
     return torch.bitwise_right_shift(init, shifts).to(_I32)
 
 
+def _use_graph(points: torch.Tensor) -> bool:
+    """Whether the passes over ``points`` run as a CUDA graph: on a card,
+    unless the caller's stream is already capturing (captures do not
+    nest)."""
+    if not points.is_cuda:
+        return False
+    with torch.cuda.device(points.device):
+        return not torch.cuda.is_current_stream_capturing()
+
+
+class _PassGraph:
+    """One pass of the lockstep loop as a CUDA graph, for one extractor,
+    stream, cloud count and floor support: ``advance(state, draws,
+    *inputs) -> state`` over static buffers of the state, the clouds'
+    inputs and the draws.  A call loads its state and inputs
+    (:meth:`load`), then steps (:meth:`step`): the graph's first pass runs
+    eagerly (the warm-up) and captures the graph, every later one copies
+    its draws in and replays it.  Each replay credits the pass's K3 launch
+    to ``kernels/build.LAUNCHES``.  A call holds ``lock`` from its load
+    until its results are copied out.  Every block of the graph's memory
+    pool is freed by the end of the capture, and the pool returns to the
+    allocator when the graph is dropped."""
+
+    def __init__(self, advance, state: _State, inputs: tuple):
+        self.advance = advance
+        self.lock = threading.Lock()
+        self.state = _State(*map(torch.empty_like, state))
+        self.inputs = tuple(map(torch.empty_like, inputs))
+        self.draws = None
+        self.graph = None
+        self.launches = []
+
+    def load(self, state: _State, inputs: tuple) -> _State:
+        for dst, src in zip((*self.state, *self.inputs), (*state, *inputs)):
+            dst.copy_(src)
+        return self.state
+
+    def _pass(self):
+        new = self.advance(self.state, self.draws, *self.inputs)
+        for dst, src in zip(self.state, new):
+            dst.copy_(src)
+
+    def step(self, state: _State, drawn) -> _State:
+        """The next pass of the static state; ``drawn`` holds, per draw
+        field, the clouds' tensors."""
+        if self.graph is None:
+            self.draws = tuple(torch.stack(xs) for xs in drawn)
+            # the warm-up: this pass eagerly, on the caller's stream, so that
+            # nothing (a library handle, a kernel's first load) starts inside
+            # the capture
+            self._pass()
+            graph = torch.cuda.CUDAGraph()
+            # one capture at a time in the process; thread-local, since a
+            # mesh's shards replay and run eagerly in threads of their own
+            with _CAPTURE_LOCK, captured_launches() as launches, \
+                    torch.cuda.graph(graph, stream=_capture_stream(),
+                                     capture_error_mode="thread_local"):
+                self._pass()
+            self.graph, self.launches = graph, launches
+        else:
+            for dst, xs in zip(self.draws, drawn):
+                torch.stack(xs, out=dst)
+            self.graph.replay()
+            credit_launches(self.launches)
+        return self.state
+
+
+#: per stream, its one pass graph with the graph's key (extractor's
+#: pass, clouds, floor support): a mesh's shards replay at once, each on a
+#: stream of its own, so they share neither a graph's buffers nor its
+#: pool, and one shard never drops another's graph
+_GRAPHS: dict = {}
+_GRAPHS_LOCK = threading.Lock()
+#: held by a capture: it synchronizes the device and empties the
+#: allocator's cache first, and only one may be underway in a process
+_CAPTURE_LOCK = threading.Lock()
+#: per device, the side stream captures run on (not the default stream,
+#: which cannot capture)
+_CAPTURE_STREAMS: dict = {}
+
+
+def _capture_stream() -> torch.cuda.Stream:
+    """The current device's capture stream (under ``_CAPTURE_LOCK``)."""
+    dev = torch.cuda.current_device()
+    if dev not in _CAPTURE_STREAMS:
+        _CAPTURE_STREAMS[dev] = torch.cuda.Stream()
+    return _CAPTURE_STREAMS[dev]
+
+
+def _pass_graph(advance, state: _State, inputs: tuple,
+                floor_support: int) -> _PassGraph:
+    """The current stream's pass graph of ``advance`` for ``state``'s
+    clouds, made (not yet captured) on first use.  A stream keeps one
+    graph: a new one takes the last one's place, whose memory pool returns
+    to the allocator (the next capture empties its cache first).  So the
+    graphs hold at most one round's working set a stream that extracts,
+    what the eager loop needs at its peak; a caller that changes shapes on
+    one stream captures at each change."""
+    key = (advance, state.done.shape[0], floor_support)
+    stream = torch.cuda.current_stream()
+    with _GRAPHS_LOCK:
+        held = _GRAPHS.get(stream)
+        if held is None or held[0] != key:
+            held = _GRAPHS[stream] = (key, _PassGraph(functools.partial(
+                advance, floor_support=floor_support), state, inputs))
+    return held[1]
+
+
 def build_extract_fn(cfg: PladeConfig, num_points: int,
                      max_extract: int | None = None):
     """The extraction function for a fixed cloud size (see
@@ -365,6 +487,7 @@ def build_extract_fn(cfg: PladeConfig, num_points: int,
             & (torch.abs(torch.sum(cn * _normalize(take(nrm_draw, pick3)),
                                    -1)) > thr)
         enough = torch.sum(within, dim=1) >= 3
+        del d2a, within                    # (B, n_draw, S_cell): done with
         cell_ok = anchor_free[:, S_seed:] & enough & nok & (cnorm > 1e-10)
         cell_d = -torch.sum(cn * ap, dim=-1)
 
@@ -391,9 +514,15 @@ def build_extract_fn(cfg: PladeConfig, num_points: int,
 
         # ---- subset scoring of fresh candidates and pool entries
         def inlier_counts(pts, nrms, fr, nmat, dvec):
-            dd = torch.abs(pts @ nmat.transpose(1, 2) + dvec[:, None, :])
-            nd = torch.abs(nrms @ nmat.transpose(1, 2))
-            ok = (dd < eps[:, None, None]) & (nd > thr) & fr[:, :, None]
+            # the round's largest tensors (B, N / R_SUB, S + C): each
+            # computed in place and dropped once compared, the same values
+            # in a third of the memory (a pass graph's pool holds the
+            # round's peak)
+            dd = (pts @ nmat.transpose(1, 2)).add_(dvec[:, None, :]).abs_()
+            ok = dd < eps[:, None, None]
+            del dd
+            ok &= (nrms @ nmat.transpose(1, 2)).abs_() > thr
+            ok &= fr[:, :, None]
             return torch.sum(ok, dim=1, dtype=_I32)
 
         all_n = torch.cat([cand_n, state.pool_n], dim=1)     # (B, S+C, 3)
@@ -643,8 +772,11 @@ def build_extract_fn(cfg: PladeConfig, num_points: int,
                                  dim=1) \
             | torch.any(lane_live & (exact >= support_now[:, None])
                         & ~eligible & ~accept_chk & ~trim_fail, dim=1)
+        # the value a tensor on the device: a Python scalar would be copied
+        # from the host, which a graph's capture refuses
         in_lanes = _set(torch.zeros((B, C), dtype=torch.bool, device=dev),
-                        rows, lane_sel, True)
+                        rows, lane_sel, torch.ones_like(lane_sel,
+                                                        dtype=torch.bool))
         ms_f = support_now.to(_F32)
         est_lcb = ms_f - torch.sqrt(torch.clamp(ms_f, min=1.0) * R_SUB)
         pending_pool = torch.any(pool_valid & ~pool_dormant & ~in_lanes
@@ -705,6 +837,19 @@ def build_extract_fn(cfg: PladeConfig, num_points: int,
             ban_count=torch.where(halve, 0, ban_count).to(_I32),
             done=done,
         )
+
+    def advance(state: _State, drawn_now, rows, th_sched, points, normals,
+                valid, eps, bitmap_eps, extent, floor_support: int) -> _State:
+        """One pass of the lockstep loop: :func:`round_body`, with every
+        cloud already done frozen, its state left as it was.  The freeze
+        is applied whether or not a cloud is done (on none it is the
+        round's state, bit for bit), so that a pass has one form."""
+        new = round_body(state, drawn_now, rows, th_sched, points, normals,
+                         valid, eps, bitmap_eps, extent, floor_support)
+        B = points.shape[0]
+        return _State(*(torch.where(
+            state.done.reshape((B,) + (1,) * (o.dim() - 1)), o, n)
+            for o, n in zip(state, new)))
 
     def extract(points, normals, count, floor_support: int,
                 generator=None, draws=None, init_support: int | None = None):
@@ -785,44 +930,67 @@ def build_extract_fn(cfg: PladeConfig, num_points: int,
             ban_count=full(0),
             done=full(False, torch.bool),
         )
-        th_sched = _thresholds_on(cfg, dev)
-        rows = torch.arange(B, device=dev)[:, None]
-        done = [False] * B
-        last = [None] * B
-        rounds = frozen = 0
-        while True:
-            with timing.stage("extract.round"):
-                # a cloud's draws see its own state; a done cloud draws no
-                # more (its last draws fill its slot, and its round is
-                # discarded)
-                with timing.stage("extract.draws"):
-                    for c in range(B):
-                        if not done[c]:
-                            last[c] = draws[c](_State(*(f[c] for f in state)))
-                drawn_now = tuple(torch.stack(xs) for xs in zip(*last))
-                new = round_body(state, drawn_now, rows, th_sched, safe_pts,
-                                 normals, valid, eps, bitmap_eps, scale,
-                                 int(floor_support))
-                rounds += 1
-                frozen += sum(done)
-                if any(done):
-                    new = _State(*(torch.where(
-                        state.done.reshape((B,) + (1,) * (o.dim() - 1)),
-                        o, n) for o, n in zip(state, new)))
-                state = new
-                with timing.stage("extract.done_read"):
-                    done = host_value(state.done)
-            if all(done):
-                break
+        inputs = (torch.arange(B, device=dev)[:, None],
+                  _thresholds_on(cfg, dev), safe_pts, normals, valid, eps,
+                  bitmap_eps, scale)
+        floor_support = int(floor_support)
+
+        def loop(state, step):
+            """The passes until every cloud is done: ``step(state,
+            drawn)`` makes the next state from the round's draws (per
+            field, the clouds' tensors).  Returns (the last state,
+            passes, frozen cloud-passes)."""
+            done = [False] * B
+            last = [None] * B
+            rounds = frozen = 0
+            while True:
+                with timing.stage("extract.round"):
+                    # a cloud's draws see its own state; a done cloud draws
+                    # no more (its last draws fill its slot, and its round
+                    # is discarded)
+                    with timing.stage("extract.draws"):
+                        for c in range(B):
+                            if not done[c]:
+                                last[c] = draws[c](
+                                    _State(*(f[c] for f in state)))
+                    state = step(state, list(zip(*last)))
+                    rounds += 1
+                    frozen += sum(done)
+                    with timing.stage("extract.done_read"):
+                        done = host_value(state.done)
+                if all(done):
+                    return state, rounds, frozen
+
+        def outputs(state):
+            return (PlaneSet(coeffs=state.coeffs, sizes=state.sizes,
+                             count=state.num_planes,
+                             point_plane=state.point_plane),
+                    ExtractStats(rounds=state.rounds, drawn=state.drawn,
+                                 trials=state.trials,
+                                 min_support=state.min_support))
+
+        if _use_graph(points):
+            with torch.cuda.device(dev):
+                graph = _pass_graph(advance, state, inputs, floor_support)
+                with graph.lock:
+                    captures = int(graph.graph is None)
+                    state, rounds, frozen = loop(graph.load(state, inputs),
+                                                 graph.step)
+                    # out of the static buffers, which the next call
+                    # overwrites
+                    planes, stats = (type(x)(*(f.clone() for f in x))
+                                     for x in outputs(state))
+            replayed = rounds - captures
+        else:
+            state, rounds, frozen = loop(state, lambda s, d: advance(
+                s, tuple(map(torch.stack, d)), *inputs, floor_support))
+            planes, stats = outputs(state)
+            replayed = captures = 0
         timing.count("extract.rounds", rounds)
         timing.count("extract.cloud_rounds", B * rounds)
         timing.count("extract.frozen", frozen)
-        planes = PlaneSet(coeffs=state.coeffs, sizes=state.sizes,
-                          count=state.num_planes,
-                          point_plane=state.point_plane)
-        stats = ExtractStats(rounds=state.rounds, drawn=state.drawn,
-                             trials=state.trials,
-                             min_support=state.min_support)
+        timing.count("extract.graph_rounds", replayed)
+        timing.count("extract.graph_captures", captures)
         if single:
             planes = PlaneSet(*(x[0] for x in planes))
             stats = ExtractStats(*(x[0] for x in stats))

@@ -10,6 +10,7 @@ machine without ``nvcc``.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -39,10 +40,42 @@ LAUNCHES = {"nearest_neighbor": 0, "oriented_min_dist_sq": 0,
 _LOCK = threading.Lock()
 
 
+#: per thread, the launches made while a CUDA graph is captured there
+#: (:func:`captured_launches`)
+_CAPTURING = threading.local()
+
+
 def count_launch(name: str):
-    """Count one launch of kernel ``name``."""
+    """Count one launch of kernel ``name``; inside
+    :func:`captured_launches` keep it instead: a capture records the launch
+    and runs nothing."""
+    held = getattr(_CAPTURING, "names", None)
+    if held is not None:
+        held.append(name)
+        return
     with _LOCK:
         LAUNCHES[name] += 1
+
+
+@contextlib.contextmanager
+def captured_launches():
+    """``with captured_launches() as names:`` around a CUDA graph's
+    capture: the launches this thread counts inside the block are listed in
+    ``names`` and not counted; :func:`credit_launches` counts them at each
+    replay of the graph."""
+    prev = getattr(_CAPTURING, "names", None)
+    _CAPTURING.names = names = []
+    try:
+        yield names
+    finally:
+        _CAPTURING.names = prev
+
+
+def credit_launches(names):
+    """Count one launch of each kernel of ``names`` (a replayed graph's)."""
+    with _LOCK:
+        for name in names:
+            LAUNCHES[name] += 1
 
 _P = ctypes.c_void_p
 _SIGNATURES = {

@@ -1,6 +1,8 @@
 """K1, K2 and K3 on a card: each CUDA kernel against its plain PyTorch
-version on the same CUDA tensors.  These tests import no JAX, so that they
-also run on a machine that has a GPU and no JAX:
+version on the same CUDA tensors; and extraction's passes replayed from a
+CUDA graph against its eager loop on the same generators.  These tests
+import no JAX, so that they also run on a machine that has a GPU and no
+JAX:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 
@@ -322,3 +324,168 @@ def test_cuda_split_queries_over_two_cards():
     assert ds.device == q.device and ss.device == q.device
     assert torch.equal(ds, d) and torch.equal(is_, i)
     assert torch.equal(os_, o) and torch.equal(ss, s)
+
+
+# ------------------------------------------- extraction's pass graph
+
+
+def _scans(n_scans):
+    """Consecutive scans of ``resso60k``'s first scene (``office_clean``:
+    at most 60000 points each)."""
+    from plade_tpu_torch.io.synthetic import make_scan_sequence
+    scans, _ = make_scan_sequence(
+        np.random.default_rng(1), n_scans=n_scans, n_points=60000,
+        overlap_radius=3.4, step=2.0, n_rooms=3, n_per_plane=9000,
+        noise=0.02, size=4.0, extra_planes=3, normal_noise_deg=3.0,
+        max_angle=1.0, max_trans=0.6)
+    return scans
+
+
+def _stacked(clouds, pad=65536):
+    from plade_tpu_torch.core.types import pad_cloud
+    from plade_tpu_torch.dist.mesh import stack_clouds
+    return stack_clouds([pad_cloud(p, n, pad, "cuda") for p, n in clouds])
+
+
+def _extract(fn, batch, floor, init=None, seed=0):
+    """One call of the extractor ``fn`` on the clouds ``batch`` (cloud c's
+    generator seeded with ``seed + c``): (planes, stats, K3 launches,
+    the call's counters)."""
+    from plade_tpu_torch.utils import timing
+    B = batch.points.shape[0]
+    gens = [torch.Generator(device="cuda").manual_seed(seed + c)
+            for c in range(B)]
+    before = cc.LAUNCHES["close_and_label_lanes"]
+    with timing.call("test.extract", B):
+        planes, stats = fn(batch.points, batch.normals, batch.count, floor,
+                           generator=gens, init_support=init)
+    torch.cuda.synchronize()
+    return (planes, stats, cc.LAUNCHES["close_and_label_lanes"] - before,
+            timing.calls()[-1]["counters"])
+
+
+def _same(a, b):
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["one_cloud", "four_clouds", "pinned"])
+def test_cuda_pass_graph_equals_the_eager_loop(case, monkeypatch):
+    """The extractor's passes replayed from a CUDA graph against the eager
+    loop on the same generators, bit for bit: planes and stats, K3
+    launches, passes.  A fresh extractor's first call runs its first pass
+    eagerly and captures; its second call replays every pass.  One cloud
+    of 65536 rows at the floor support; four in lockstep (two scans and
+    two cuts of them to 20000 and 8000 points, which finish rounds
+    earlier); one cloud at a pinned support (floor and start)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card)")
+    from plade_tpu_torch.core.config import PladeConfig
+    from plade_tpu_torch.extract import ransac
+    cfg = PladeConfig()
+    scans = _scans(2)
+    floor, init = cfg.ransac_min_allowed_support, None
+    if case == "four_clouds":
+        (p0, n0), (p1, n1) = scans
+        batch = _stacked([(p0, n0), (p1, n1), (p0[:20000], n0[:20000]),
+                          (p1[:8000], n1[:8000])])
+    else:
+        batch = _stacked(scans[:1])
+        if case == "pinned":
+            floor = init = 1000
+    graph_fn = ransac.build_extract_fn(cfg, 65536, 64)
+    first = _extract(graph_fn, batch, floor, init)
+    second = _extract(graph_fn, batch, floor, init)
+    with monkeypatch.context() as m:
+        m.setattr(ransac, "_use_graph", lambda points: False)
+        eager = _extract(ransac.build_extract_fn(cfg, 65536, 64), batch,
+                         floor, init)
+    rounds = eager[3]["extract.rounds"]
+    if case == "four_clouds":
+        assert len(set(eager[1].rounds.tolist())) > 1, eager[1].rounds
+    for got in (first, second):
+        assert _same(got[0], eager[0]) and _same(got[1], eager[1])
+        assert got[2] == eager[2] == rounds        # K3 once a pass
+        assert got[3]["extract.rounds"] == rounds
+        assert got[3]["extract.frozen"] == eager[3]["extract.frozen"]
+    assert first[3]["extract.graph_captures"] == 1
+    assert first[3]["extract.graph_rounds"] == rounds - 1
+    assert second[3]["extract.graph_captures"] == 0
+    assert second[3]["extract.graph_rounds"] == rounds
+    assert eager[3]["extract.graph_rounds"] == 0
+    assert eager[3]["extract.graph_captures"] == 0
+
+
+@pytest.mark.cuda
+def test_cuda_pass_graph_results_outlive_the_next_call(monkeypatch):
+    """The two clouds of a pair extracted one after the other through the
+    pipeline's cached extractor, as ``register_clouds`` does (one graph:
+    both clouds are 65536 rows): the first call's planes and stats are not
+    overwritten by the second call, both equal the eager loop's, and
+    ``auto_extract`` selects from the same planes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card)")
+    from plade_tpu_torch.core.config import PladeConfig
+    from plade_tpu_torch.extract import ransac
+    cfg = PladeConfig()
+    clouds = [_stacked([s]) for s in _scans(2)]
+    floor = cfg.ransac_min_allowed_support
+
+    def both():
+        out = []
+        for k, c in enumerate(clouds):
+            gen = torch.Generator(device="cuda").manual_seed(k)
+            got = ransac._cached_extractor(cfg, 65536)(
+                c.points[0], c.normals[0], c.count[0], floor, generator=gen)
+            out.append((got, [[x.clone() for x in g] for g in got]))
+        torch.cuda.synchronize()
+        return out
+
+    both()                                  # the first pass captures
+    graph = both()
+    with monkeypatch.context() as m:
+        m.setattr(ransac, "_use_graph", lambda points: False)
+        eager = both()
+    for (got, snap), (want, _) in zip(graph, eager):
+        for g, s, w in zip(got, snap, want):
+            assert _same(g, s)              # unchanged by the later call
+            assert _same(g, w)
+    for k, (c, ((planes, _), _)) in enumerate(zip(clouds, graph)):
+        gen = torch.Generator(device="cuda").manual_seed(k)
+        sel = ransac.auto_extract(c.points[0], c.normals[0], c.count[0], cfg,
+                                  65536, generator=gen)
+        assert _same(sel, ransac.select_planes_device(planes, cfg))
+
+
+@pytest.mark.cuda
+def test_cuda_pass_graphs_are_one_a_stream():
+    """Each stream keeps one pass graph: a call on a stream of its own (a
+    mesh shard's) keeps its graph beside the default stream's, which then
+    replays; another extractor's call on the default stream takes the
+    graph's place and captures, and the first extractor captures again
+    after it.  Every call gives the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card)")
+    from plade_tpu_torch.core.config import PladeConfig
+    from plade_tpu_torch.extract import ransac
+    cfg = PladeConfig()
+    batch = _stacked(_scans(1))
+    floor = cfg.ransac_min_allowed_support
+    fn_a, fn_b = (ransac.build_extract_fn(cfg, 65536, 64) for _ in range(2))
+    side = torch.cuda.Stream()
+    home = torch.cuda.current_stream()
+    captures = []
+
+    def call(fn, stream):
+        with torch.cuda.stream(stream):
+            got = _extract(fn, batch, floor)
+        captures.append(got[3]["extract.graph_captures"])
+        return got
+
+    want = call(fn_a, home)
+    for fn, stream in ((fn_b, side), (fn_a, home), (fn_b, home),
+                       (fn_a, home)):
+        got = call(fn, stream)
+        assert _same(got[0], want[0]) and _same(got[1], want[1])
+    assert captures == [1, 1, 0, 1, 1]
+    assert ransac._GRAPHS[side][0][0] is not ransac._GRAPHS[home][0][0]

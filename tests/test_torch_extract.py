@@ -177,6 +177,41 @@ def test_extractor_staged_halving_matches_reference(rng):
                                np.asarray(jp.coeffs[:count]), atol=1e-4)
 
 
+def test_lockstep_freeze_matches_reference_on_replayed_draws(rng):
+    """Two clouds in lockstep, one done rounds before the other: every
+    pass freezes the done cloud (the freeze runs whether or not a cloud
+    is done), and each cloud's planes and stats are the reference's for
+    that cloud alone on the same replayed draws (its vmapped while_loop
+    leaves a done cloud as it was)."""
+    clouds = [_scene(rng, name)[:2] for name in ("single_plane", "room")]
+    pad = 1 << (max(p.shape[0] for p, _ in clouds) - 1).bit_length()
+    keys = jax.random.split(jax.random.PRNGKey(3))
+    tcfg = config_from(TEST_CFG)
+    batch = [pad_cloud(p, n, pad, "cpu") for p, n in clouds]
+    tp, ts = ransac.build_extract_fn(tcfg, pad, max_extract=16)(
+        torch.stack([c.points for c in batch]),
+        torch.stack([c.normals for c in batch]),
+        torch.stack([c.count for c in batch]), 300,
+        draws=[_replayed_draws(k, pad, tcfg) for k in keys])
+    rounds = ts.rounds.tolist()
+    assert rounds[0] != rounds[1], rounds
+    extractor = jr.make_extractor(TEST_CFG, pad, max_extract=16)
+    for c, ((pts, nrm), key) in enumerate(zip(clouds, keys)):
+        jc = jpad_cloud(pts, nrm, pad)
+        jp, js = extractor(jc.points, jc.normals, jc.count, key, 300)
+        count = int(jp.count)
+        assert int(tp.count[c]) == count > 0
+        assert rounds[c] == int(js.rounds)
+        assert int(ts.trials[c]) == int(js.trials)
+        assert int(ts.min_support[c]) == int(js.min_support)
+        np.testing.assert_allclose(tp.coeffs[c, :count].numpy(),
+                                   np.asarray(jp.coeffs[:count]), atol=1e-4)
+        agree = np.mean(tp.point_plane[c].numpy()
+                        == np.asarray(jp.point_plane))
+        assert agree >= 0.999, agree
+        assert float(ts.drawn[c]) == pytest.approx(float(js.drawn), rel=1e-4)
+
+
 def _own_extract(pts, nrm, cfg, min_support, max_extract=16, seed=0):
     n = pts.shape[0]
     pad = 1 << (n - 1).bit_length()

@@ -11,12 +11,18 @@ the CPU.
   (``regbench.trace.summarize``) sees only the stages.
 * Extraction's counters: ``extract.rounds`` is the most rounds a cloud ran,
   ``extract.frozen`` the rounds of clouds already done (a 2-cloud lockstep
-  extraction on the reference's replayed draws, one cloud ending early).
+  extraction on the reference's replayed draws, one cloud ending early);
+  on the CPU no pass is replayed from a CUDA graph or captured
+  (``extract.graph_rounds``, ``extract.graph_captures``).  A launch
+  counted during a graph's capture is credited at each replay instead
+  (``kernels/build.captured_launches``).
 * Host reads by site: ``register_array_pairs`` copies 8 result fields a
   chunk (``entry.read_out``), each shard of a mesh 8 of its own (its
   ``shard.<k>.<device>`` span); two CPU shards credit one call record.
 
-CPU tensors never count a kernel launch."""
+CPU tensors never count a kernel launch (the credit test puts the counts
+back as it found them)."""
+import threading
 import time
 
 import jax
@@ -28,7 +34,7 @@ from plade_tpu_torch.core.convert import config_from
 from plade_tpu_torch.core.types import pad_cloud
 from plade_tpu_torch.dist import mesh
 from plade_tpu_torch.extract import ransac
-from plade_tpu_torch.kernels import nn
+from plade_tpu_torch.kernels import build, nn
 from plade_tpu_torch.pipeline import register_clouds
 from plade_tpu_torch.utils import timing
 from regbench import trace
@@ -247,3 +253,53 @@ def test_frozen_clouds_of_a_lockstep_extraction(rng):
     assert counters["extract.cloud_rounds"] == 2 * max(rounds)
     assert counters["extract.frozen"] == abs(rounds[0] - rounds[1])
 
+
+
+def test_cpu_passes_run_eagerly(rng):
+    """On the CPU the lockstep loop runs its passes eagerly: no pass is
+    replayed from a graph and none is captured, and the passes are
+    counted as before."""
+    pts, nrm = _scene(rng, "cc_split")[:2]
+    pad = 1 << (pts.shape[0] - 1).bit_length()
+    tcfg = config_from(TEST_CFG)
+    cloud = pad_cloud(pts, nrm, pad, "cpu")
+    assert not ransac._use_graph(cloud.points)
+    fn = ransac.build_extract_fn(tcfg, pad, max_extract=4)
+    with timing.call("unit.extract", 1):
+        _, stats = fn(cloud.points, cloud.normals, cloud.count, 300,
+                      generator=torch.Generator().manual_seed(0))
+    rec = timing.calls()[-1]
+    counters = rec["counters"]
+    assert counters["extract.graph_rounds"] == 0
+    assert counters["extract.graph_captures"] == 0
+    assert counters["extract.rounds"] == int(stats.rounds) \
+        == rec["spans"]["extract.round"]["count"] > 0
+
+
+def test_captured_launches_are_credited_at_each_replay():
+    """A launch counted while a graph is captured is kept, not counted (the
+    capture runs nothing); each replay credits the kept launches.  Another
+    thread's launches during the capture count as they run."""
+    before = dict(build.LAUNCHES)
+    try:
+        with build.captured_launches() as names:
+            build.count_launch("close_and_label_lanes")
+            other = threading.Thread(
+                target=build.count_launch, args=("nearest_neighbor",))
+            other.start()
+            other.join(timeout=10)
+            assert not other.is_alive()
+        assert names == ["close_and_label_lanes"]
+        assert build.LAUNCHES["close_and_label_lanes"] \
+            == before["close_and_label_lanes"]
+        assert build.LAUNCHES["nearest_neighbor"] \
+            == before["nearest_neighbor"] + 1
+        for k in (1, 2):
+            build.credit_launches(names)
+            assert build.LAUNCHES["close_and_label_lanes"] \
+                == before["close_and_label_lanes"] + k
+        build.count_launch("close_and_label_lanes")   # outside: counted
+        assert build.LAUNCHES["close_and_label_lanes"] \
+            == before["close_and_label_lanes"] + 3
+    finally:
+        build.LAUNCHES.update(before)

@@ -27,7 +27,14 @@ extractions must be the main path's bits:
     shapes with a pair axis of 8 (K2 8 x 131072 x 16384 and 8 x 16384 x
     16384, K1 8 x 131072 x 16384 and 8 x 262144 x 16384: one launch for
     all pairs, each pair also bit for bit its own unbatched launch; the
-    library yardstick ``cdist`` + ``min`` pair by pair).  With
+    library yardstick ``cdist`` + ``min`` pair by pair); K4 (the spacing's
+    top-k) bit for bit at the spacing's shapes in the benchmark's cells
+    (8 x 10000 x 131072, 8 x 10000 x 65536, 1 x 10000 x 65536, the queries
+    strided samples of BIG-padded clouds as ``average_spacing`` draws them)
+    at k = 1, 6 and 16, the spacing through it, one launch a call, each
+    shape timed at k = 6 beside its plain version, the yardstick
+    ``torch.cdist`` + ``torch.topk`` in the plain version's blocks, its
+    bound, its issue ceiling and its registers (ptxas).  With
     ``--parent DIR`` (a checkout of
     the parent tree), also build DIR's ``csrc/nn.cu`` and ``csrc/cc.cu``
     and time its K1/K2/K3 against this tree's in turns on the same inputs
@@ -54,8 +61,8 @@ extractions must be the main path's bits:
     the default ``PladeConfig`` (plane extraction on the card): one
     warm-up, then three timed runs; the first timed run's extraction
     rounds and selected planes per cloud against the 12 planes of the
-    scene, its kernel launches (K3 once per extraction round) and host
-    syncs, pose error and counters, the live downsampled points of both
+    scene, its kernel launches (K3 once per extraction round, K4 once at
+    its spacing's shape) and host syncs, pose error and counters, the live downsampled points of both
     clouds and the rounds K3's lanes needed; then one call without
     ``device=``, which must launch the kernels (the default is the card);
     K3 on the grids of that run's launches: bit for bit against the plain
@@ -109,8 +116,11 @@ extractions must be the main path's bits:
     of its B = 1 result with the same success; the wall per pair and the
     peak memory at each B, kernels and host syncs a batch, K1/K2/K3
     launches with their shapes (K2 4 launches at 8 x 131072 x 16384, K1
-    over 8 pairs, K3 once a lockstep round at L = 96), the stage table of
-    one profiled B = 8 batch, K3 on that run's grids as in (f), and an
+    over 8 pairs, K4 once at 8 x 10000 x the padded rows, K3 once a
+    lockstep round at L = 96), the stage table of
+    one profiled B = 8 batch (its ``plade.spacing`` range's kernels: K4,
+    no product, sort or ``torch.topk``), K3 on that run's grids as in (f),
+    and an
     ``enable_icp`` batch (K2 21 times at 8 x 16384 x 16384);
 (p) pairs over a pairs axis (``dist/mesh.py``, ``dist/multihost.py``) on
     (o)'s 8 pairs.  Reproducibility: one B = 8 batch twice gives the same
@@ -164,7 +174,9 @@ shape; each row's ``launches`` counts its path's run and
 ``launches_by_path`` every path's; the batched rows (``"path":
 "register_batch"``) count their shape's launches in (o)'s B = 8 run (the
 final ICP's in its ``enable_icp`` batch), the ``"eval_suite"`` rows their
-shape's launches in (r) (K3's: all of (r)'s); the rows of chip_smoke's own K3
+shape's launches in (r) (K3's: all of (r)'s), K4's rows (at the
+benchmark's spacing shapes) their shape's launches in their path's run,
+(o)'s or (f)'s, 0 where that run's clouds pad to another size; the rows of chip_smoke's own K3
 grids lie on no path: ``"path": null``, ``"launches": 0``), the card's
 name and power limit from nvidia-smi, and ``{"ok": true, "device":
 {...}}``.
@@ -173,8 +185,10 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import io
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -184,6 +198,9 @@ from pathlib import Path
 
 import numpy as np
 import torch
+
+sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+import spacing_clouds  # noqa: E402
 
 #: the card's published peaks (NVIDIA H100 SXM data sheet): fp32 outside
 #: the tensor cores, and device memory.  A kernel's bound is the larger of
@@ -215,6 +232,26 @@ EDGE_SHAPES = ((131071, 16383), (1, 16384), (131072, 1), (1, 1),
 #: 3 products, 2 additions; K1 those and the 3-term normal dot
 K2_FLOP = 8
 K1_FLOP = 13
+#: the kernel a counted launch runs (a part of its name in a trace), by
+#: its key in ``kernels/build.LAUNCHES``
+KERNEL_NAMES = {"nearest_neighbor": "nn_kernel",
+                "oriented_min_dist_sq": "oriented_kernel",
+                "close_and_label_lanes": "close_label_kernel",
+                "topk_dist_sq": "topk_kernel"}
+#: K4's shapes (P, rows a cloud, live rows of each cloud, path): the
+#: spacing's 10000 samples of each source cloud against its rows in the
+#: benchmark's cells (``spacing_clouds.BENCH_CLOUDS``), with the entry
+#: whose run here counts its launches
+TOPK_SHAPES = tuple((*c, path) for c, path in zip(
+    spacing_clouds.BENCH_CLOUDS,
+    ("register_batch", "register_batch", "register_clouds")))
+#: K4 a distance: floating-point operations (the dot as a product and two
+#: fused multiply-adds, the doubling as a fused multiply-add with |q|^2,
+#: the add of |r|^2) and thread-instructions (those 5, the compare with
+#: the k-th smallest, and a quarter of the branch a reference that a
+#: thread takes for its 4 queries; ``csrc/knn.cu``)
+K4_FLOP = 8
+K4_ISSUE = 6.25
 #: integer operations a cell of a K3 round (the 4 minima of the separable
 #: 3 x 3 min: two down the column, two along the row; the closed-mask
 #: select is not counted), and a cell of the close (4 ORs, 4 ANDs, 1 OR)
@@ -474,6 +511,107 @@ def check_kernels(nn):
                      "plain_ms": plain_ms, "bound_ms": bound_ms,
                      "bound_by": bound_by, "library_ms": None})
     return rows, inputs
+
+
+def ptxas_registers(report: str, kernel: str) -> dict:
+    """{entry function: (registers, spill stores, spill loads)} from an
+    ``nvcc -Xptxas -v`` report, for the functions whose mangled name holds
+    ``kernel``."""
+    found, current = {}, None
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            current = m.group(1) if kernel in m.group(1) else None
+            continue
+        if current is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            found[current] = (None, int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            spills = found.get(current, (None, None, None))
+            found[current] = (int(m.group(1)),) + spills[1:]
+            current = None
+    return found
+
+
+def library_topk(queries, refs, k: int):
+    """The yardstick for K4: ``torch.cdist`` (distances, not squared) and
+    ``torch.topk`` in the plain version's blocks of queries."""
+    from plade_tpu_torch.knn import bruteforce
+    block = bruteforce.topk_block(queries, refs)
+    return torch.cat([torch.topk(torch.cdist(queries[..., s:s + block, :],
+                                             refs), k, dim=-1,
+                                 largest=False).values
+                      for s in range(0, queries.shape[-2], block)], dim=-2)
+
+
+def check_topk(nn, report: str):
+    """(b) K4 at ``TOPK_SHAPES``: bit for bit the plain version at k = 1, 6
+    and ``nn.TOPK_MAX_K``, one launch a call, and ``average_spacing``
+    through it the plain top-k's spacing; at k = 6 its time beside the
+    plain version's, the yardstick's, its bound and its issue ceiling (at
+    the SM clock nvidia-smi reads under it); its registers from the
+    build's ptxas ``report``.  Returns the rows of the kernels' JSON
+    line, without ``launches``: :func:`main` takes each row's from its
+    path's run at its shape."""
+    from plade_tpu_torch.kernels import build
+    from plade_tpu_torch.knn import bruteforce
+    plain_passes = bruteforce.ONE_DEVICE._replace(
+        topk_dist_sq=bruteforce.topk_dist_sq_plain)
+    registers = ptxas_registers(report, "topk_kernel")
+    print(f"[b] K4 topk_kernel instances (registers, spill stores, spill "
+          f"loads): {registers}", flush=True)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rows = []
+    for P, N, live, path in TOPK_SHAPES:
+        pts, mask, q = spacing_clouds.spacing_inputs(P, N, live)
+        Q = q.shape[-2]
+        shape = f"{P}x{Q}x{N}"
+        for k in (1, 6, nn.TOPK_MAX_K):
+            before = nn.LAUNCHES["topk_dist_sq"]
+            got = nn.topk_dist_sq(q, pts, k)
+            torch.cuda.synchronize()
+            launches = nn.LAUNCHES["topk_dist_sq"] - before
+            want = bruteforce.topk_dist_sq_plain(q, pts, k)
+            if not torch.equal(got, want) or launches != 1:
+                diff = got != want
+                fail(f"[b] K4 {shape} k={k}: {int(diff.sum())} values differ "
+                     f"from the plain version (largest gap "
+                     f"{max_abs_diff(got, want):.3e}), {launches} launches")
+        sp = bruteforce.average_spacing(pts, mask, 6, Q)
+        sp_plain = bruteforce.average_spacing(pts, mask, 6, Q, plain_passes)
+        if not torch.equal(sp, sp_plain):
+            fail(f"[b] K4 {shape}: the spacing differs from the plain top-k's")
+        slice_ = build.library().plade_topk_slice(P, Q, N, 6)
+        ms = cuda_ms(lambda: nn.topk_dist_sq(q, pts, 6))
+        plain_ms = cuda_ms(lambda: bruteforce.topk_dist_sq_plain(q, pts, 6),
+                           reps=3, warm=1)
+        library_ms = cuda_ms(lambda: library_topk(q, pts, 6), reps=3, warm=1)
+        work = P * Q * N
+        bound_ms, bound_by = bound(K4_FLOP * work,
+                                   P * (16 * (Q + N) + 4 * 6 * Q))
+        clock = sm_clock_mhz(lambda: nn.topk_dist_sq(q, pts, 6))
+        issue_ms = K4_ISSUE * work / (SM_ISSUE * sms * clock * 1e6) * 1e3
+        print(f"[b] K4 topk_dist_sq {shape} (live rows {list(live)}), k = 1, "
+              f"6, {nn.TOPK_MAX_K}: bit-identical to the plain version, one "
+              f"launch a call, the spacing too; {-(-N // slice_)} reference "
+              f"slices of {slice_}; k = 6: kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.3f} ms, cdist+topk {library_ms:.3f} ms, bound "
+              f"{bound_ms:.4f} ms ({bound_by}, {100 * bound_ms / ms:.1f}% of "
+              f"it), issue ceiling {issue_ms:.4f} ms at {clock:.0f} MHz "
+              f"({100 * issue_ms / ms:.1f}% of it)", flush=True)
+        rows.append({"name": "topk_dist_sq", "route": "cuda",
+                     "source": "plade_tpu_torch/csrc/knn.cu",
+                     "replaces": None, "shape": shape, "path": path,
+                     "max_abs_err": 0.0, "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "issue_ms": issue_ms,
+                     "library_ms": library_ms, "registers": registers})
+        del pts, mask, q, got, want
+    return rows
 
 
 def batch_inputs(P: int, Q: int, T: int):
@@ -772,13 +910,15 @@ def check_result(tag, T, info):
         fail(f"{tag}: registration failed: {info}")
 
 
-def profile_stages(run, tag="[d]"):
+def profile_stages(run, tag="[d]", kernels_of=None):
     """One profiled call of ``run``: device time per pipeline stage (the
     ``plade.*`` profiler ranges; a range entered several times sums),
     kernels launched, and the device's busy share of the wall time.
     Kernels are attributed to the stage whose host range encloses their
     launch (matched by correlation id in the exported trace).  Returns
-    {stage: (host ms, device ms, kernels)}."""
+    {stage: (host ms, device ms, kernels)}, and with ``kernels_of`` (a
+    stage) also {kernel name: launches} of that stage under the key
+    "(kernels of STAGE)", printed."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -803,21 +943,24 @@ def profile_stages(run, tag="[d]"):
     for start, end, name in stages:
         per_stage.setdefault(name, [0.0, 0, 0.0])[2] += end - start
     other = [0.0, 0]
+    names = {}
     for e in device:
         ts = launch_ts.get(e.get("args", {}).get("correlation"))
-        slot = other
+        slot, stage = other, None
         for start, end, name in stages:
             if ts is not None and start <= ts <= end:
-                slot = per_stage[name]
+                slot, stage = per_stage[name], name
                 break
         slot[0] += e["dur"]
         slot[1] += e.get("cat") == "kernel"
+        if stage == kernels_of and e.get("cat") == "kernel":
+            names[e["name"][:120]] = names.get(e["name"][:120], 0) + 1
     busy_us = sum(e["dur"] for e in device)
     print(f"{tag} profiled registration: wall {wall_us / 1e3:.1f} ms, device "
           f"busy {busy_us / 1e3:.1f} ms ({100 * busy_us / wall_us:.1f}%), "
           f"kernels {sum(e.get('cat') == 'kernel' for e in device)}",
           flush=True)
-    for kernel in ("nn_kernel", "oriented_kernel", "close_label_kernel"):
+    for kernel in KERNEL_NAMES.values():
         durs = [e["dur"] for e in device if kernel in e["name"]]
         if durs:
             print(f"{tag} {kernel}: {len(durs)} launches, "
@@ -835,6 +978,9 @@ def profile_stages(run, tag="[d]"):
              for name, (dev_us, n, host_us) in per_stage.items()}
     table["(total)"] = (wall_us / 1e3, busy_us / 1e3,
                         sum(e.get("cat") == "kernel" for e in device))
+    if kernels_of is not None:
+        print(f"{tag} {kernels_of} kernels: {names}", flush=True)
+        table[f"(kernels of {kernels_of})"] = names
     return table
 
 
@@ -1304,10 +1450,10 @@ def same_bits(a, b) -> bool:
 
 @contextlib.contextmanager
 def kernel_calls(name, keep):
-    """Records ``keep(tensors, None)`` of every call of the K1 or K2
+    """Records ``keep(tensors, None)`` of every call of the K1, K2 or K4
     wrapper ``name`` (``kernels.nn``) made inside the ``with`` block, in
-    call order, where the wrapper checks its tensors: K2's (queries, refs),
-    K1's (queries, qnormals, refs, rnormals).  Every caller's pass ends
+    call order, where the wrapper checks its tensors: K2's and K4's
+    (queries, refs), K1's (queries, qnormals, refs, rnormals).  Every caller's pass ends
     there, whatever object handed it down; the call is untouched."""
     from plade_tpu_torch.kernels import nn
     real = nn._check
@@ -1325,6 +1471,22 @@ def kernel_calls(name, keep):
         nn._check = real
 
 
+def k4_shape(a, out):
+    """(P, Q, T) of a K4 call's (queries, refs), for :func:`kernel_calls`:
+    P = 1 for a call without a cloud axis."""
+    return (a[0][..., 0, 0].numel(), a[0].shape[-2], a[1].shape[-2])
+
+
+def shape_counts(name, shapes, into=None):
+    """``into`` (a new dict by default) with each of ``shapes`` counted
+    under (``name``, its ``PxQxT`` string), the key of the kernels' rows."""
+    into = {} if into is None else into
+    for shape in shapes:
+        key = (name, "x".join(map(str, shape)))
+        into[key] = into.get(key, 0) + 1
+    return into
+
+
 def check_register_clouds(tp, tn, sp, sn, R, t, gen, cfg, device):
     """(f) ``register_clouds`` on the raw clouds: one warm-up, three timed
     runs; extraction rounds and selected planes per cloud against the
@@ -1334,9 +1496,11 @@ def check_register_clouds(tp, tn, sp, sn, R, t, gen, cfg, device):
     give the same transform.  K3's inputs come from one more run with
     extraction on its eager loop (:func:`eager_k3_calls`), whose
     extractions and transform must be the first timed run's bits.  Returns
-    a dict: that run's ``launches``, the (occ, iters) of each K3 launch
-    (``k3_grids``), its ``extractions`` ((planes, stats) per cloud), its
-    transform ``T``, (g)'s transform ``files_T``, and the ``walls``."""
+    a dict: that run's ``launches``, its K4 launches by shape
+    (``by_shape``, :func:`shape_counts`), the (occ, iters) of each K3
+    launch (``k3_grids``), its ``extractions`` ((planes, stats) per
+    cloud), its transform ``T``, (g)'s transform ``files_T``, and the
+    ``walls``."""
     from plade_tpu_torch import pipeline
     from plade_tpu_torch.core import types as ptypes
     from plade_tpu_torch.extract import ransac
@@ -1359,6 +1523,7 @@ def check_register_clouds(tp, tn, sp, sn, R, t, gen, cfg, device):
         with recorded_extractions(ransac) as seen, \
                 recorded_calls(pipeline, "prepare_cloud",
                                lambda a, out: out.ds.count) as ds_counts, \
+                kernel_calls("topk_dist_sq", k4_shape) as k4_shapes, \
                 extraction_counts() as counts:
             sync()
             t0 = time.perf_counter()
@@ -1372,6 +1537,7 @@ def check_register_clouds(tp, tn, sp, sn, R, t, gen, cfg, device):
             extractions = seen
             live = [int(c) for c in ds_counts]
             first_counts, first_T = counts, T
+            first_k4 = k4_shapes
     # K3's inputs: the same registration with extraction's eager loop
     with eager_k3_calls(lambda a, out: (a[0].clone(), a[1])) as k3_grids, \
             recorded_extractions(ransac) as eager:
@@ -1381,6 +1547,10 @@ def check_register_clouds(tp, tn, sp, sn, R, t, gen, cfg, device):
         fail("[f] the eager loop's extractions or transform differ from "
              "the main path's")
     check_result("[f]", T, info)
+    print(f"[f] K4 (P, Q, T) of the first timed run: {first_k4}", flush=True)
+    if len(first_k4) != 1 or launches["topk_dist_sq"] != 1:
+        fail(f"[f] K4 calls {first_k4}, launches {launches}: not one "
+             "spacing through K4")
     if info["swapped"] or len(extractions) != 2:
         fail(f"[f] {len(extractions)} extractions (swapped "
              f"{info['swapped']}), expected target then source")
@@ -1481,8 +1651,10 @@ def check_register_clouds(tp, tn, sp, sn, R, t, gen, cfg, device):
           f"{drot:.6f} deg, translation diff {dtrans:.3e}", flush=True)
     if drot >= FILES_TOL_DEG or dtrans >= FILES_TOL_T:
         fail("[g] register_files disagrees with register_clouds")
-    return dict(launches=launches, k3_grids=k3_grids,
-                extractions=extractions, T=T, files_T=Tf, walls=walls)
+    return dict(launches=launches,
+                by_shape=shape_counts("topk_dist_sq", first_k4),
+                k3_grids=k3_grids, extractions=extractions, T=T, files_T=Tf,
+                walls=walls)
 
 
 def reset_counts():
@@ -1867,10 +2039,6 @@ def run_cli(tag, argv, problems):
 #: the ``plade.*`` ranges of the device step (``utils.timing.stage``)
 STEP_STAGES = ("extract", "spacing", "prepare", "descriptors", "match",
                "cluster", "consistency", "penetration", "overlap", "rescore")
-#: each kernel's name in a trace, by its launch counter
-KERNEL_NAMES = {"nearest_neighbor": "nn_kernel",
-                "oriented_min_dist_sq": "oriented_kernel",
-                "close_and_label_lanes": "close_label_kernel"}
 
 
 def profiled_batch(tmp: Path, pairs_file: Path, problems):
@@ -1970,12 +2138,13 @@ def check_cli(scene, files_T, cfg):
               f"at first use): {'built' if native.available() else 'absent'}"
               "; without it the numpy reader reads", flush=True)
         kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
-        found = {k: sum(k in name for name in kernels) for k in
-                 ("nn_kernel", "oriented_kernel", "close_label_kernel")}
+        found = {k: sum(k in name for name in kernels)
+                 for k in KERNEL_NAMES.values()}
         print(f"[m] --profile trace: {len(events)} events, {len(kernels)} "
               f"kernel events; K2 nn_kernel {found['nn_kernel']}, K1 "
               f"oriented_kernel {found['oriented_kernel']}, K3 "
-              f"close_label_kernel {found['close_label_kernel']}", flush=True)
+              f"close_label_kernel {found['close_label_kernel']}, K4 "
+              f"topk_kernel {found['topk_kernel']}", flush=True)
         if min(found.values()) < 1:
             problems.append(f"[m] trace lacks a kernel: {found}")
 
@@ -2144,8 +2313,8 @@ def check_batch(scene, cfg, per_clock: float, old_k3, step_run):
     at B = 1 (pair after pair, the single-pair step), 2, 4 and 8, one
     warm-up and three timed runs each, each fenced by a host read of the
     results; the peak memory of each B's timed runs.  The first timed B = 8
-    run counts launches (K2 and K1 shapes, K3 once a graph pass) and host
-    syncs; every pair within the pose limits at B = 8, within 1e-4 of its
+    run counts launches (K2, K1 and K4 shapes, K3 once a graph pass) and
+    host syncs; every pair within the pose limits at B = 8, within 1e-4 of its
     B = 1 transform with the same success.  K3's grids and lanes come from
     the same batch with extraction's eager loop (:func:`eager_k3_calls`),
     which must give the counted run's bits.  Then one profiled B = 8 batch
@@ -2226,6 +2395,7 @@ def check_batch(scene, cfg, per_clock: float, old_k3, step_run):
             kernel_calls("oriented_min_dist_sq",
                          lambda a, out: tuple(a[0].shape[:-1])
                          + (a[2].shape[-2],)) as k1_shapes, \
+            kernel_calls("topk_dist_sq", k4_shape) as k4_shapes, \
             recorded_extractions(ransac) as seen, \
             extraction_counts() as counts:
         T_main = run(BATCH)[0]
@@ -2260,12 +2430,12 @@ def check_batch(scene, cfg, per_clock: float, old_k3, step_run):
     L = 2 * BATCH * cfg.ransac_exact_lanes
     by_shape = {}
     for name, shapes in (("nearest_neighbor", k2_shapes),
-                         ("oriented_min_dist_sq", k1_shapes)):
-        for shape in shapes:
-            key = (name, "x".join(map(str, shape)))
-            by_shape[key] = by_shape.get(key, 0) + 1
+                         ("oriented_min_dist_sq", k1_shapes),
+                         ("topk_dist_sq", k4_shapes)):
+        shape_counts(name, shapes, by_shape)
     print(f"[o] B = {BATCH}, one batch: launches {launches}; K2 shapes "
-          f"(P, Q, T) {k2_shapes}; K1 shapes {k1_shapes}; extraction "
+          f"(P, Q, T) {k2_shapes}; K1 shapes {k1_shapes}; K4 shapes "
+          f"{k4_shapes}; extraction "
           f"counters {counts}; the eager loop: {len(grids)} K3 calls over "
           f"lanes {lanes}, lockstep rounds of the {2 * BATCH} clouds "
           f"{rounds}; host syncs {syncs[BATCH]} (the step at B = 1 in (i): "
@@ -2275,6 +2445,10 @@ def check_batch(scene, cfg, per_clock: float, old_k3, step_run):
     if not k1_shapes or {s[0] for s in k1_shapes} != {BATCH} \
             or K1_BATCH_SHAPES[1] not in k1_shapes:
         problems.append(f"[o] K1 launches {k1_shapes}")
+    if k4_shapes != [(BATCH, cfg.spacing_samples, pad)] \
+            or launches["topk_dist_sq"] != 1:
+        problems.append(f"[o] K4 launches {k4_shapes} "
+                        f"({launches['topk_dist_sq']} counted)")
     check_graph_passes("[o]", launches["close_and_label_lanes"], counts,
                        2 * BATCH, problems)
     if lanes != [L] or len(grids) != max(rounds):
@@ -2293,10 +2467,16 @@ def check_batch(scene, cfg, per_clock: float, old_k3, step_run):
           f"(i) (room pair): {step_run['wall'] * 1e3:.1f} ms; peak memory, "
           f"MiB: { {B: round(m / 2**20, 1) for B, m in peaks.items()} }; "
           f"{card}", flush=True)
-    table = profile_stages(lambda: run(BATCH), tag="[o]")
+    table = profile_stages(lambda: run(BATCH), tag="[o]",
+                           kernels_of="plade.spacing")
     print(f"[o] kernels a batch of {BATCH}: {table['(total)'][2]} (a pair "
           f"in (i): {step_run['kernels']}); host syncs a batch "
           f"{syncs[BATCH]}", flush=True)
+    spacing = table["(kernels of plade.spacing)"]
+    k4 = sum(n for name, n in spacing.items() if "topk_kernel" in name)
+    if k4 != 1 or any(re.search("gemm|mbtopk|sort", name, re.I)
+                      for name in spacing):
+        fail(f"[o] the spacing's kernels are not K4's: {spacing}")
     k3_row = k3_main_path(cc, grids, per_clock, old_k3, tag="[o]")
     k3_row["path"] = "register_batch"
     k3_row["launches"] = launches["close_and_label_lanes"]
@@ -2808,9 +2988,13 @@ def split_kernels(nn, cfg, batch_run):
         one_peak = torch.cuda.max_memory_allocated() - base
         base = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
+        reset_counts()
         got = passes.topk_dist_sq(sq, spts, cfg.spacing_k)
         torch.cuda.synchronize()
         split_peak = torch.cuda.max_memory_allocated() - base
+        launches = nn.LAUNCHES["topk_dist_sq"]
+        cuts = query_cuts(sq.shape[-2], k, block)
+        parts = sum(hi > lo for lo, hi in zip(cuts, cuts[1:]))
         sp_want = bruteforce.average_spacing(
             src.points, src.mask, cfg.spacing_k, cfg.spacing_samples)
         sp_got = bruteforce.average_spacing(
@@ -2822,13 +3006,15 @@ def split_kernels(nn, cfg, batch_run):
         one_ms = cuda_ms(lambda: bruteforce.topk_dist_sq(
             sq, spts, cfg.spacing_k), reps=2, warm=1)
         print(f"[q] spacing top-{cfg.spacing_k} {tuple(sq.shape[:-1])} x "
-              f"{spts.shape[-2]} (blocks of {block} queries) over {k} parts: "
-              f"the bits of the unsplit call {same} (top-k and spacing); "
+              f"{spts.shape[-2]} (cut at blocks of {block} queries) over {k} "
+              f"parts: the bits of the unsplit call {same} (top-k and "
+              f"spacing); {launches} K4 launches ({parts} parts); "
               f"{ms:.2f} ms split against {one_ms:.2f} ms; peak memory "
               f"above its inputs {split_peak / 2**20:.1f} MiB split against "
               f"{one_peak / 2**20:.1f} MiB", flush=True)
-        if not same:
-            problems.append(f"[q] the spacing over {k} parts differs")
+        if not same or launches != parts:
+            problems.append(f"[q] the spacing over {k} parts: same bits "
+                            f"{same}, {launches} K4 launches")
     return problems
 
 
@@ -3166,7 +3352,10 @@ def main():
 
     # (a) build
     t0 = time.perf_counter()
-    build.build(verbose=True)
+    with contextlib.redirect_stdout(io.StringIO()) as report:
+        build.build(verbose=True)
+    report = report.getvalue()
+    print(report, flush=True)
     build.library()
     print(f"[a] kernels built and loaded in {time.perf_counter() - t0:.2f} s",
           flush=True)
@@ -3180,6 +3369,7 @@ def main():
         old_k3 = parent_k3(cc_dll)
     del inputs
     rows += check_batched_kernels(nn)
+    rows += check_topk(nn, report)
     per_clock = cell_ops_per_clock()
     rows += check_cc(cc, per_clock, old_k3)
 
@@ -3301,9 +3491,13 @@ def main():
     print(f"[r] the script's time after (r): "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
     rows.append(k3_row)
+    # launches by (kernel, shape) of the runs that count them by shape
+    by_shape = {"register_batch": batch_by_shape,
+                "register_clouds": clouds_run["by_shape"]}
     for row in rows:
-        if row.get("path") == "register_batch" and "launches" not in row:
-            row["launches"] = batch_by_shape.get(
+        if (row.get("path") == "register_batch" and "launches" not in row) \
+                or row["name"] == "topk_dist_sq":
+            row["launches"] = by_shape[row["path"]].get(
                 (row["name"], row["shape"]), 0)
     paths.update({"register_batch": batch_launches,
                   "register_pair_device": step_run["launches"],
@@ -3316,8 +3510,9 @@ def main():
         path = row.setdefault("path", "register_pair_device")
         row["launches_by_path"] = {p: counts.get(row["name"], 0)
                                    for p, counts in paths.items()}
-        if path in ("register_batch", "eval_suite"):
-            pass                # (o)'s or (r)'s launches at this row's shape
+        if path in ("register_batch", "eval_suite") \
+                or row["name"] == "topk_dist_sq":
+            pass                # (o)'s, (r)'s or (f)'s at this row's shape
         elif path is None:
             # measured on chip_smoke's own grids, on no main path (K3' is
             # the L = 1 entry the reference's tests call; the paths run the

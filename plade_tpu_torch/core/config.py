@@ -193,6 +193,9 @@ class PladeConfig:
     max_degraded_matches: int = 8192
 
     # ----- average spacing (util.cpp:1619-1648) -----
+    #: neighbours of each sample, itself included.  On a card the top-k is
+    #: K4, which keeps 1 to ``kernels.nn.TOPK_MAX_K`` (16) and raises a
+    #: ValueError at the spacing stage for any other k; the CPU takes any
     spacing_k: int = 6
     spacing_samples: int = 10000
 

@@ -137,8 +137,10 @@ def split_queries(fn, devices, per_query, shared, align: int = 1):
 def on_group(devices) -> NNPasses:
     """The nearest-neighbour passes over the group ``devices`` (home
     first), each splitting its query rows by :func:`split_queries`: the
-    top-k at the whole call's block boundaries, so that every part runs
-    the unsplit call's blocks.  With one device, the one-device passes."""
+    top-k at the whole call's block boundaries, so that a part on a CPU
+    runs the unsplit call's blocks of the plain version (K4, on a card,
+    gives each query the same bits whatever the cut).  With one device,
+    the one-device passes."""
     devices = tuple(_indexed(d) for d in devices)
     if len(devices) <= 1:
         return ONE_DEVICE

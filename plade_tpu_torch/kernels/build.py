@@ -23,7 +23,7 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("nn.cu", "cc.cu")
+SOURCES = ("nn.cu", "cc.cu", "knn.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC",
               # the kernels' d2 must round like the plain PyTorch version
@@ -34,7 +34,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 #: nowhere else (:func:`count_launch`): a run resets the counts and reads
 #: them to show that its path went through the kernels
 LAUNCHES = {"nearest_neighbor": 0, "oriented_min_dist_sq": 0,
-            "close_and_label_lanes": 0}
+            "close_and_label_lanes": 0, "topk_dist_sq": 0}
 #: the shards of a mesh launch from host threads of their own: the counts'
 #: read-modify-write and the first build of the library hold this lock
 _LOCK = threading.Lock()
@@ -89,6 +89,13 @@ _SIGNATURES = {
     # P, Q, T, oriented -> reference slices of a K2 (0) or K1 (1) launch
     "plade_nn_ref_slices": (ctypes.c_int, ctypes.c_int, ctypes.c_int,
                             ctypes.c_int),
+    # q, qq, r, rr, out, scratch, P, Q, T, k, slice, stream
+    "plade_topk_dist_sq": (_P, _P, _P, _P, _P, _P, ctypes.c_int,
+                           ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                           ctypes.c_int, _P),
+    # P, Q, T, k -> references a slice of a K4 launch
+    "plade_topk_slice": (ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                         ctypes.c_int),
     # occ, out, L, G, iters, stream
     "plade_close_and_label": (_P, _P, ctypes.c_int, ctypes.c_int,
                               ctypes.c_int, _P),

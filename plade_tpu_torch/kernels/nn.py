@@ -1,15 +1,20 @@
 """Exact nearest-neighbour passes: the CUDA kernels and their plain versions.
 
 ``nearest_neighbor`` (K2) and ``oriented_min_dist_sq`` (K1) replace the
-Pallas kernels of ``plade_tpu/kernels/nn.py``.  Each public function takes
-CUDA tensors to its hand-written kernel (``csrc/nn.cu``) and CPU tensors to
-its plain PyTorch version in this module; there is no fallback from one to
+Pallas kernels of ``plade_tpu/kernels/nn.py``.  Each takes CUDA tensors to
+its hand-written kernel (``csrc/nn.cu``) and CPU tensors to its plain
+PyTorch version in this module; there is no fallback from one to
 the other.  The plain versions use the kernels' difference form
 ``d2 = dx*dx + dy*dy + dz*dz`` (not the |q|^2 - 2 q.r + |r|^2 expansion)
 and their tie rule (lowest index wins), and are blocked over references so
 that the (Q, T) distance matrix is never materialised.  Both take either
 one query set against one reference set or a leading axis of P pairs, each
 pair's queries against that pair's references: one launch for all pairs.
+
+``topk_dist_sq`` (K4, ``csrc/knn.cu``), the spacing's exact top-k in the
+expansion form, replaces no Pallas kernel and takes CUDA tensors only:
+``knn.bruteforce.topk_dist_sq`` gives CPU tensors to its plain version,
+``knn.bruteforce.topk_dist_sq_plain``.
 
 ``LAUNCHES`` (shared by every kernel module, defined in ``build``) counts
 kernel launches per kernel, and nothing else: a run resets it and reads it
@@ -23,6 +28,8 @@ from .build import LAUNCHES, count_launch  # noqa: F401
 
 #: elements of one (query, reference) block in the plain versions
 _BLOCK_ELEMS = 1 << 22
+#: the most neighbours K4 keeps a query (``csrc/knn.cu``'s kMaxK)
+TOPK_MAX_K = 16
 
 
 def _ref_block(Q: int, T: int) -> int:
@@ -183,3 +190,49 @@ def oriented_min_dist_sq(queries: torch.Tensor, qnormals: torch.Tensor,
     _raise_on("oriented_min_dist_sq", err)
     count_launch("oriented_min_dist_sq")
     return d
+
+
+def topk_dist_sq(queries: torch.Tensor, refs: torch.Tensor,
+                 k: int) -> torch.Tensor:
+    """K4: (..., Q, k) the k smallest squared distances (ascending) of each
+    query to the references, in the expansion form ``max(|q|^2 - 2 q.r +
+    |r|^2, 0)`` of ``knn.bruteforce.topk_dist_sq_plain``, whose bits it
+    gives.  queries (Q, 3), refs (T, 3), or per cloud (P, Q, 3) against
+    that cloud's (P, T, 3) (one launch for all clouds); float32,
+    contiguous, on one CUDA device; 1 <= k <= min(T, ``TOPK_MAX_K``)."""
+    dev = _check("topk_dist_sq", queries, refs)
+    T = refs.shape[-2]
+    if not 1 <= k <= TOPK_MAX_K:
+        raise ValueError(f"topk_dist_sq: k = {k}, K4 keeps 1 to "
+                         f"{TOPK_MAX_K} neighbours a query")
+    if k > T:
+        raise ValueError(f"topk_dist_sq: k = {k} above the {T} references")
+    if dev.type != "cuda":
+        raise ValueError(f"topk_dist_sq: K4 runs on a CUDA device, not {dev}"
+                         " (knn.bruteforce.topk_dist_sq_plain is the CPU's)")
+    from .build import library
+    lead = queries.shape[:-2]
+    P = lead[0] if lead else 1
+    Q = queries.shape[-2]
+    out = torch.empty(lead + (Q, k), dtype=torch.float32, device=dev)
+    if out.numel() == 0:
+        return out
+    # the plain version's |q|^2 and |r|^2, bit for bit
+    qq = torch.sum(queries * queries, dim=-1)
+    rr = torch.sum(refs * refs, dim=-1)
+    with torch.cuda.device(dev):
+        lib = library()
+        slice_ = lib.plade_topk_slice(P, Q, T, k)
+        slices = -(-T // slice_)
+        # each slice's k smallest a query, merged into ``out``; freed on
+        # return while the kernels may still run, as K2's keys
+        scratch = torch.empty((slices, P, k, Q) if slices > 1 else (0,),
+                              dtype=torch.float32, device=dev)
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.plade_topk_dist_sq(
+            queries.data_ptr(), qq.data_ptr(), refs.data_ptr(),
+            rr.data_ptr(), out.data_ptr(), scratch.data_ptr(), P, Q, T, k,
+            slice_, stream)
+    _raise_on("topk_dist_sq", err)
+    count_launch("topk_dist_sq")
+    return out

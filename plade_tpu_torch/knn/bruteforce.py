@@ -3,10 +3,12 @@
 
 ``nearest_neighbor`` and ``min_dist_sq`` are K2 (``kernels/nn.py``): the
 CUDA kernel for CUDA tensors, its plain version for CPU tensors.
-``average_spacing`` selects with an exact ``torch.topk`` where the
+``average_spacing``'s top-k (:func:`topk_dist_sq`) is exact where the
 reference uses ``lax.approx_min_k``, which JAX also computes exactly off
-the TPU.  It keeps the reference's |q|^2 - 2 q.r + |r|^2 distance form, so
-that the spacing, from which every radius of the pipeline is derived,
+the TPU: K4 (``kernels/nn.py``, ``csrc/knn.cu``) for CUDA tensors, the
+blocked ``torch.topk`` of :func:`topk_dist_sq_plain` for CPU tensors, the
+same bits.  Both keep the reference's |q|^2 - 2 q.r + |r|^2 distance form,
+so that the spacing, from which every radius of the pipeline is derived,
 rounds like the reference's.
 
 Padding convention: invalid points sit at BIG, so they never enter any
@@ -19,12 +21,13 @@ from typing import Callable, NamedTuple
 import torch
 
 from ..core.ops import scalar
+from ..kernels import nn as kernels
 from ..kernels.nn import min_dist_sq, nearest_neighbor, oriented_min_dist_sq
 
 
 #: most elements of one (cloud, query, reference) distance block of
-#: ``topk_dist_sq``: 512 queries against 131072 references (one default-size
-#: cloud) a block, and fewer queries a block for several clouds
+#: ``topk_dist_sq_plain``: 512 queries against 131072 references (one
+#: default-size cloud) a block, and fewer queries a block for several clouds
 _BLOCK_ELEMS = 512 * 131072
 
 
@@ -39,20 +42,21 @@ def _block_dist_sq(q: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
 
 def topk_block(queries: torch.Tensor, refs: torch.Tensor,
                block: int = 512) -> int:
-    """The queries a block of :func:`topk_dist_sq`: at most ``block``,
-    fewer when the clouds' distance block would pass ``_BLOCK_ELEMS``.  It
-    depends on the leading axes and the reference count, not on the query
-    count, so a part of the queries keeps the whole call's blocks."""
+    """The queries a block of :func:`topk_dist_sq_plain`: at most
+    ``block``, fewer when the clouds' distance block would pass
+    ``_BLOCK_ELEMS``.  It depends on the leading axes and the reference
+    count, not on the query count, so a part of the queries keeps the whole
+    call's blocks."""
     clouds = queries[..., 0, 0].numel()
     return max(1, min(block, _BLOCK_ELEMS // max(1, clouds
                                                  * refs.shape[-2])))
 
 
-def topk_dist_sq(queries: torch.Tensor, refs: torch.Tensor, k: int,
-                 block: int = 512) -> torch.Tensor:
+def topk_dist_sq_plain(queries: torch.Tensor, refs: torch.Tensor, k: int,
+                       block: int = 512) -> torch.Tensor:
     """(..., Q, k) smallest squared distances (ascending), exact, for
     queries (..., Q, 3) against refs (..., T, 3), in blocks of
-    :func:`topk_block` queries."""
+    :func:`topk_block` queries: K4's plain version."""
     block = topk_block(queries, refs, block)
     out = []
     for s in range(0, queries.shape[-2], block):
@@ -60,6 +64,16 @@ def topk_dist_sq(queries: torch.Tensor, refs: torch.Tensor, k: int,
         out.append(torch.topk(d, k, dim=-1, largest=False, sorted=True)
                    .values)
     return torch.cat(out, dim=-2)
+
+
+def topk_dist_sq(queries: torch.Tensor, refs: torch.Tensor, k: int,
+                 block: int = 512) -> torch.Tensor:
+    """(..., Q, k) smallest squared distances (ascending), exact, for
+    queries (..., Q, 3) against refs (..., T, 3): K4 for tensors on a card
+    (``block`` unused), :func:`topk_dist_sq_plain` for CPU tensors."""
+    if queries.device.type == "cpu" and refs.device.type == "cpu":
+        return topk_dist_sq_plain(queries, refs, k, block)
+    return kernels.topk_dist_sq(queries, refs, k)
 
 
 class NNPasses(NamedTuple):

@@ -1,6 +1,6 @@
-"""K1, K2 and K3 on a card: each CUDA kernel against its plain PyTorch
-version on the same CUDA tensors; and extraction's passes replayed from a
-CUDA graph against its eager loop on the same generators.  These tests
+"""K1, K2, K3 and K4 on a card: each CUDA kernel against its plain
+PyTorch version on the same CUDA tensors; and extraction's passes replayed
+from a CUDA graph against its eager loop on the same generators.  These tests
 import no JAX, so that they also run on a machine that has a GPU and no
 JAX:
 
@@ -12,12 +12,15 @@ dot) with the same operations in the same order (``csrc/nn.cu`` is built
 without fused multiply-add), K2's argmin takes the lowest index among ties
 also across the reference slices its atomic merge joins, and K3 is
 integer-only, also on a serpentine grid that 256 rounds leave unconverged
-(the kernel's early stop against the plain version's full count)."""
+(the kernel's early stop against the plain version's full count), and K4
+(the spacing's top-k) takes the plain version's |q|^2 and |r|^2 and
+rounds its q.r as the plain version's cuBLAS product does."""
 import numpy as np
 import pytest
 import torch
 
 import cc_grids
+from spacing_clouds import BENCH_CLOUDS, spacing_inputs
 from plade_tpu_torch.core import ops
 from plade_tpu_torch.kernels import cc, nn
 
@@ -257,6 +260,78 @@ def test_cuda_index_sum_is_reproducible():
                                rtol=1e-5, atol=1e-5)
 
 
+#: K4's main-path shapes (``spacing_clouds.BENCH_CLOUDS``) and a cloud with
+#: fewer live rows than k beside a full one (the padding enters its lists)
+SPACING_CLOUDS = [*BENCH_CLOUDS, (2, 1000, (3, 1000))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 6, 16])
+@pytest.mark.parametrize("P,N,live", SPACING_CLOUDS)
+def test_cuda_topk_matches_plain(P, N, live, k):
+    """K4 on the spacing's own queries and clouds: bit for bit the plain
+    version (the blocked cuBLAS product and ``torch.topk``), one launch a
+    call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card)")
+    from plade_tpu_torch.knn.bruteforce import topk_dist_sq_plain
+    pts, _, q = spacing_inputs(P, N, live)
+    before = nn.LAUNCHES["topk_dist_sq"]
+    got = nn.topk_dist_sq(q, pts, k)
+    torch.cuda.synchronize()
+    assert nn.LAUNCHES["topk_dist_sq"] == before + 1
+    assert got.shape == (P, q.shape[-2], k)
+    assert torch.equal(got, topk_dist_sq_plain(q, pts, k))
+    if live[0] < k:                               # the padding enters
+        assert (got[0, :, live[0]:] > 1e15).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 6, 9, 16])
+@pytest.mark.parametrize("P,Q,T", [
+    (None, 1001, 777),    # no cloud axis
+    (1, 1001, 777), (8, 333, 5000),
+    (3, 4097, 20000),     # ragged against the block's queries and the tile
+    (2, 1, 16384), (1, 2500, 16),
+    (1, 64, 100000),      # few queries, many references: the finest split
+])
+def test_cuda_topk_ragged_matches_plain(P, Q, T, k):
+    """K4 at shapes that are no multiple of its block or tile, with ties
+    and BIG-padded rows: bit for bit the plain version, one launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card)")
+    from plade_tpu_torch.knn.bruteforce import topk_dist_sq_plain
+    q, _, r, _ = _pair_inputs(P or 1, Q, T)
+    if P is None:
+        q, r = q[0], r[0]
+    before = nn.LAUNCHES["topk_dist_sq"]
+    got = nn.topk_dist_sq(q, r, k)
+    torch.cuda.synchronize()
+    assert nn.LAUNCHES["topk_dist_sq"] == before + 1
+    assert torch.equal(got, topk_dist_sq_plain(q, r, k))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P,N,live", BENCH_CLOUDS)
+def test_cuda_average_spacing_through_k4_equals_plain(P, N, live):
+    """``average_spacing`` on a card (K4) is the plain top-k's spacing,
+    bit for bit, one K4 launch a call; a top-k above K4's bound raises."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card)")
+    from plade_tpu_torch.knn import bruteforce
+    pts, mask, q = spacing_inputs(P, N, live)
+    before = nn.LAUNCHES["topk_dist_sq"]
+    got = bruteforce.average_spacing(pts, mask, 6, 10000)
+    torch.cuda.synchronize()
+    assert nn.LAUNCHES["topk_dist_sq"] == before + 1
+    want = bruteforce.average_spacing(
+        pts, mask, 6, 10000, bruteforce.ONE_DEVICE._replace(
+            topk_dist_sq=bruteforce.topk_dist_sq_plain))
+    assert torch.equal(got, want)
+    with pytest.raises(ValueError, match=str(nn.TOPK_MAX_K)):
+        bruteforce.topk_dist_sq(q, pts, nn.TOPK_MAX_K + 1)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("k", [2, 3])
 @pytest.mark.parametrize("P,Q,T", [(1, 131071, 16383), (3, 4097, 20000),
@@ -264,12 +339,13 @@ def test_cuda_index_sum_is_reproducible():
 def test_cuda_split_queries_equal_one_launch(k, P, Q, T):
     """K1, K2 and the spacing's top-k split over a group of ``k`` parts on
     one card (``dist/intra.split_queries``, each part on a stream of its
-    own): bit for bit one launch, every non-empty part one launch."""
+    own): bit for bit one launch, every non-empty part one launch (the
+    top-k's parts cut at its plain version's block boundaries)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (run on the card)")
     from plade_tpu_torch.dist import intra
     from plade_tpu_torch.dist.intra import query_cuts, split_queries
-    from plade_tpu_torch.knn.bruteforce import topk_dist_sq
+    from plade_tpu_torch.knn.bruteforce import topk_block, topk_dist_sq
     q, qn, r, rn = _pair_inputs(P, Q, T)
     group = ["cuda:0"] * k
     d, i = nn.nearest_neighbor(q, r)
@@ -277,6 +353,8 @@ def test_cuda_split_queries_equal_one_launch(k, P, Q, T):
     s = topk_dist_sq(q, r, 6)
     cuts = query_cuts(Q, k)
     parts = sum(hi > lo for lo, hi in zip(cuts, cuts[1:]))
+    cuts = query_cuts(Q, k, topk_block(q, r))
+    topk_parts = sum(hi > lo for lo, hi in zip(cuts, cuts[1:]))
     before = dict(nn.LAUNCHES)
     ds, is_ = split_queries(nn.nearest_neighbor, group, [q], [r])
     os_ = split_queries(lambda *a: nn.oriented_min_dist_sq(*a, 0.5), group,
@@ -287,6 +365,7 @@ def test_cuda_split_queries_equal_one_launch(k, P, Q, T):
         == before["nearest_neighbor"] + parts
     assert nn.LAUNCHES["oriented_min_dist_sq"] \
         == before["oriented_min_dist_sq"] + parts
+    assert nn.LAUNCHES["topk_dist_sq"] == before["topk_dist_sq"] + topk_parts
     assert torch.equal(ds, d) and torch.equal(is_, i)
     assert torch.equal(os_, o)
     assert torch.equal(ss, s)
@@ -321,6 +400,7 @@ def test_cuda_split_queries_over_two_cards():
     assert nn.LAUNCHES["nearest_neighbor"] == before["nearest_neighbor"] + 2
     assert nn.LAUNCHES["oriented_min_dist_sq"] \
         == before["oriented_min_dist_sq"] + 2
+    assert nn.LAUNCHES["topk_dist_sq"] == before["topk_dist_sq"] + 2
     assert ds.device == q.device and ss.device == q.device
     assert torch.equal(ds, d) and torch.equal(is_, i)
     assert torch.equal(os_, o) and torch.equal(ss, s)

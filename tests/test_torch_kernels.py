@@ -141,6 +141,62 @@ def test_wrappers_validate_inputs():
         nn.oriented_min_dist_sq(q, torch.zeros(5, 3), q, q, 0.5)
 
 
+def _refuse_library(monkeypatch):
+    """Make loading the kernel library fail the test."""
+    from plade_tpu_torch.kernels import build
+
+    def refuse():
+        raise AssertionError("the CUDA kernel library was loaded")
+    monkeypatch.setattr(build, "library", refuse)
+
+
+@pytest.mark.parametrize("lead", [(), (3,)])
+def test_topk_cpu_tensors_take_the_plain_version(rng, monkeypatch, lead):
+    """CPU tensors reach the blocked plain top-k, never K4's library: the
+    k smallest squared distances of float64, ascending."""
+    _refuse_library(monkeypatch)
+    q = rng.normal(size=lead + (50, 3)).astype(np.float32)
+    r = rng.normal(size=lead + (700, 3)).astype(np.float32)
+    got = bruteforce.topk_dist_sq(_t(q), _t(r), 6, block=16)
+    assert torch.equal(got, bruteforce.topk_dist_sq_plain(_t(q), _t(r), 6,
+                                                          block=16))
+    d2 = ((q.astype(np.float64)[..., :, None, :]
+           - r.astype(np.float64)[..., None, :, :]) ** 2).sum(-1)
+    want = np.sort(d2, axis=-1)[..., :6]
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("case", ["dtype", "shape", "devices", "dispatch",
+                                  "k_above_limit", "k_zero", "k_above_refs",
+                                  "cpu"])
+def test_topk_kernel_checks_before_loading(monkeypatch, case):
+    """K4's wrapper raises on a bad dtype, shape, device mix or k, and on a
+    CPU tensor, before it loads the library; ``bruteforce.topk_dist_sq``
+    hands a device mix to it."""
+    _refuse_library(monkeypatch)
+    q, r, k, err, match = torch.zeros(4, 3), torch.zeros(20, 3), 6, \
+        ValueError, None
+    fn = nn.topk_dist_sq
+    if case == "dtype":
+        q, r, err = q.double(), r.double(), TypeError
+    elif case == "shape":
+        q = torch.zeros(4, 2)
+    elif case == "devices":
+        r = torch.zeros(20, 3, device="meta")
+    elif case == "dispatch":
+        r, fn = torch.zeros(20, 3, device="meta"), bruteforce.topk_dist_sq
+    elif case == "k_above_limit":
+        k, match = nn.TOPK_MAX_K + 1, str(nn.TOPK_MAX_K)
+    elif case == "k_zero":
+        k = 0
+    elif case == "k_above_refs":
+        r, k = torch.zeros(5, 3), 6
+    elif case == "cpu":
+        match = "CUDA"
+    with pytest.raises(err, match=match):
+        fn(q, r, k)
+
+
 @pytest.mark.parametrize("n,samples", [(3000, 2000), (700, 2000)])
 def test_average_spacing_matches_reference(rng, n, samples):
     """Exact top-k here, approx_min_k (exact off the TPU) there, on the

@@ -1489,8 +1489,8 @@ def shape_counts(name, shapes, into=None):
 
 def check_register_clouds(tp, tn, sp, sn, R, t, gen, cfg, device):
     """(f) ``register_clouds`` on the raw clouds: one warm-up, three timed
-    runs; extraction rounds and selected planes per cloud against the
-    scene's planes; pose error, counters, kernel launches (returned) and
+    runs; its one lockstep extraction of both clouds, rounds and selected
+    planes per cloud against the scene's planes; pose error, counters, kernel launches (returned) and
     host syncs of the first timed run, whose extractions are the ones
     checked.  (g) ``register_files`` on the same clouds written as PLY must
     give the same transform.  K3's inputs come from one more run with
@@ -1534,8 +1534,8 @@ def check_register_clouds(tp, tn, sp, sn, R, t, gen, cfg, device):
         if run == 0:
             launches = dict(nn.LAUNCHES)
             syncs = ptypes.HOST_SYNCS["count"]
-            extractions = seen
-            live = [int(c) for c in ds_counts]
+            first_seen = seen
+            live = [int(c) for cs in ds_counts for c in cs.reshape(-1)]
             first_counts, first_T = counts, T
             first_k4 = k4_shapes
     # K3's inputs: the same registration with extraction's eager loop
@@ -1543,7 +1543,7 @@ def check_register_clouds(tp, tn, sp, sn, R, t, gen, cfg, device):
             recorded_extractions(ransac) as eager:
         T_eager, _ = register_clouds(tp, tn, sp, sn, cfg, seed=0,
                                      device=device)
-    if not same_bits(eager, extractions) or not same_bits(T_eager, first_T):
+    if not same_bits(eager, first_seen) or not same_bits(T_eager, first_T):
         fail("[f] the eager loop's extractions or transform differ from "
              "the main path's")
     check_result("[f]", T, info)
@@ -1551,9 +1551,13 @@ def check_register_clouds(tp, tn, sp, sn, R, t, gen, cfg, device):
     if len(first_k4) != 1 or launches["topk_dist_sq"] != 1:
         fail(f"[f] K4 calls {first_k4}, launches {launches}: not one "
              "spacing through K4")
-    if info["swapped"] or len(extractions) != 2:
-        fail(f"[f] {len(extractions)} extractions (swapped "
-             f"{info['swapped']}), expected target then source")
+    if info["swapped"] or len(first_seen) != 1 \
+            or first_seen[0][1].rounds.shape != (2,):
+        fail(f"[f] {len(first_seen)} extraction calls (swapped "
+             f"{info['swapped']}), expected one over target and source")
+    # (planes, stats) per cloud, target then source
+    extractions = [tuple(type(x)(*(f[c] for f in x)) for x in first_seen[0])
+                   for c in range(2)]
     frames = ((np.eye(3, dtype=np.float32), np.zeros(3, np.float32)),
               (R, t))
     rounds = []
@@ -1607,12 +1611,12 @@ def check_register_clouds(tp, tn, sp, sn, R, t, gen, cfg, device):
           f"{len(k3_grids)} K3 calls, the main path's extractions and "
           "transform bit for bit", flush=True)
     if torch.device(device).type == "cuda":
-        # one K3 launch per extraction round of each cloud, every round on
+        # one K3 launch per lockstep round of both clouds, every round on
         # the graph, and one K3 call per round of the eager loop
         problems = []
         if check_graph_passes("[f]", launches["close_and_label_lanes"],
-                              first_counts, 1, problems) != sum(rounds) \
-                or len(k3_grids) != sum(rounds):
+                              first_counts, 2, problems) != max(rounds) \
+                or len(k3_grids) != max(rounds):
             problems.append(f"[f] {len(k3_grids)} eager K3 calls, rounds "
                             f"{rounds}")
         if problems:
@@ -3129,10 +3133,10 @@ def check_intra(cfg, batch_run):
               f"{card}", flush=True)
         if not same:
             problems.append(f"[q] {path}: not the bits of (o)'s B = {want}")
-        # and each group's copy of its 8 result fields to the host
-        if syncs != want_syncs + 8 * groups:
+        # and each group's one copy of its results to the host
+        if syncs != want_syncs + groups:
             problems.append(f"[q] {path}: host syncs {syncs}, (o) "
-                            f"{want_syncs} + {8 * groups} copies")
+                            f"{want_syncs} + {groups} copies")
         if len(by) != groups:
             problems.append(f"[q] {path}: {len(by)} group threads")
         for c in by.values():

@@ -22,7 +22,7 @@ from ..utils import timing
 BIG = 1.0e8
 
 #: host reads of device values made through ``host_value`` and
-#: ``host_copy``; a run resets it and reads it to count its host syncs (the
+#: ``host_tensors``; a run resets it and reads it to count its host syncs (the
 #: shards of a mesh read from threads of their own, hence the lock)
 HOST_SYNCS = {"count": 0}
 _SYNCS_LOCK = threading.Lock()
@@ -41,10 +41,22 @@ def host_value(t: torch.Tensor):
     return t.tolist()
 
 
-def host_copy(t: torch.Tensor) -> torch.Tensor:
-    """A tensor copied to the CPU; counts one host sync."""
+def host_tensors(tensors) -> list[torch.Tensor]:
+    """CPU copies of float32, int32 and bool tensors on one device, in one
+    host sync: packed into one float64 buffer there (a float32 as the
+    int32 of its bits, so every bit stays), copied, then split and cast
+    back to each tensor's shape and dtype."""
+    tensors = list(tensors)
+    if any(t.dtype not in (torch.float32, torch.int32, torch.bool)
+           for t in tensors):
+        raise TypeError("host_tensors: float32, int32 and bool only")
     _count_read()
-    return t.cpu()
+    flat = torch.cat([(t.view(torch.int32) if t.is_floating_point() else t)
+                      .reshape(-1).to(torch.float64) for t in tensors]).cpu()
+    return [(p.to(torch.int32).view(torch.float32) if t.is_floating_point()
+             else p.to(t.dtype)).reshape(t.shape)
+            for p, t in zip(flat.split([t.numel() for t in tensors]),
+                            tensors)]
 
 
 def _mask(n: int, count: torch.Tensor) -> torch.Tensor:

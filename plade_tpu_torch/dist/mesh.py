@@ -31,7 +31,7 @@ import numpy as np
 import torch
 
 from ..core.config import PladeConfig
-from ..core.types import Cloud, RegistrationResult, host_copy, pad_cloud
+from ..core.types import Cloud, RegistrationResult, host_tensors, pad_cloud
 from ..pipeline import (_cap_cloud, _pad_size, _run_device,
                         register_pair_device)
 from ..utils import timing
@@ -184,7 +184,7 @@ def _register_shards(tgt_batch: Cloud, src_batch: Cloud, seeds, cfg,
                        Cloud(*(x[lo:hi] for x in src_batch)), seeds[lo:hi],
                        None if draws is None else draws[2 * lo:2 * hi])
             # the copy to the host waits for the shard's stream
-            return RegistrationResult(*(host_copy(x) for x in res))
+            return RegistrationResult(*host_tensors(res))
 
     jobs = [(k, g, lo, hi) for k, (g, lo, hi)
             in enumerate(zip(groups, cut, cut[1:])) if hi > lo]
@@ -315,16 +315,11 @@ def register_array_pairs(cloud_pairs, cfg: PladeConfig, seed: int = 0,
                 cfg, mesh=mesh, device=device)
             with timing.stage("entry.read_out"):
                 # a mesh's shards have copied their results to the host
-                host = RegistrationResult(*(
-                    (host_copy(x) if device is not None else x).numpy()
-                    for x in res))
+                host = host_tensors(res) if device is not None else res
+                cols = {f: x.tolist() for f, x in zip(res._fields[1:],
+                                                       host[1:])}
                 outcomes += [PairOutcome(
-                    host.transform[i], bool(host.success[i]),
-                    float(host.score[i]), float(host.overlap[i]),
-                    int(host.matched_planes[i]),
-                    cloud_capped=cap_flags[start + i],
-                    match_saturated=int(host.match_saturated[i]),
-                    pen_overflow=int(host.pen_overflow[i]),
-                    cluster_truncated=int(host.cluster_truncated[i]))
+                    host[0][i].numpy(), cloud_capped=cap_flags[start + i],
+                    **{f: v[i] for f, v in cols.items()})
                     for i in range(len(chunk))]
     return outcomes

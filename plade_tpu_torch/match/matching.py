@@ -92,8 +92,8 @@ def match_descriptors(query: PairDescriptors, target: PairDescriptors,
     kept_hits = torch.sum(hi, dim=-1)
     out = Matches(q_idx=buf_q[:, :max_matches], t_idx=buf_t[:, :max_matches],
                   valid=m, count=total,
-                  saturated=torch.sum((nh > kept_hits).to(torch.int32),
-                                      dim=1))
+                  saturated=torch.sum(nh > kept_hits, dim=1,
+                                      dtype=torch.int32))
     return drop(out) if single else out
 
 

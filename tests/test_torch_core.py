@@ -180,6 +180,38 @@ def test_pad_cloud_and_se3_match_reference(rng):
         types.se3_matrix(torch.from_numpy(R), torch.from_numpy(tr)).numpy())
 
 
+_HOST_CASES = {
+    "float32": torch.tensor([[1.5, -0.0, float("nan")],
+                             [float("inf"), -float("inf"), 1e-45]]),
+    "int32": torch.tensor([2**31 - 1, -(2**31 - 1), 0, -1],
+                          dtype=torch.int32),
+    "bool": torch.tensor([[True, False], [False, True]]),
+    "0-d": torch.tensor(3.25),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_HOST_CASES))
+def test_host_tensors_round_trip(name):
+    """Each case beside the others, in one host sync: every tensor back
+    with its shape, dtype and bits (a float32 compared as int32 bits, so
+    NaN and the subnormal count too)."""
+    want = [_HOST_CASES[name], torch.tensor([7, -8], dtype=torch.int32),
+            torch.tensor(True)]
+    syncs = types.HOST_SYNCS["count"]
+    got = types.host_tensors(want)
+    assert types.HOST_SYNCS["count"] == syncs + 1
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        if b.is_floating_point():
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        assert torch.equal(a, b)
+
+
+def test_host_tensors_refuses_int64():
+    with pytest.raises(TypeError):
+        types.host_tensors([torch.zeros(3), torch.tensor([2**40])])
+
+
 @pytest.mark.parametrize("density", [0.0, 0.1, 0.5, 1.0])
 def test_nonzero_static_matches_jnp(rng, density):
     mask = rng.uniform(size=97) < density

@@ -17,8 +17,10 @@ package on the CPU.
   counters and per-cloud extraction stats equal.  At ``SMALL_CFG``
   (``bitmap_cc_iters=48``) the reference's CPU labelling converges, so it
   agrees with the port's K3 semantics.
-* The step with its own generators extracts ``register_clouds``' planes on
-  the same seed: the same transform and plane counts.
+* ``register_clouds`` is the step at B = 1: on the same seed, one
+  extractor call and one ``prepare_cloud`` call over both clouds, and the
+  step's result bit for bit.  ``register_with_planes`` given the planes
+  the step's extraction finds gives that result too.
 * A blob with no planes: identity, ``success`` False, no exception.
 * ``dist.mesh.register_array_pairs`` equals the step pair by pair.
 * Without a card the new entry points raise unless asked for the CPU.
@@ -163,15 +165,34 @@ def step_runs():
     fast = pipeline.build_register_device_fn(FAST, PAD, with_stats=True,
                                              device="cpu")
     own = fast(tc, sc, 0)
-    clouds = pipeline.register_clouds(pts, nrm, spts, snrm, FAST, seed=0,
-                                      device="cpu")
+    calls = {"extract": [], "prepare": []}
+    with pytest.MonkeyPatch.context() as mp:
+        real_extractor, real_prepare = (ransac._cached_extractor,
+                                        pipeline.prepare_cloud)
+
+        def extractor(cfg, num_points):
+            fn = real_extractor(cfg, num_points)
+
+            def run(points, *args, **kwargs):
+                calls["extract"].append(tuple(points.shape))
+                return fn(points, *args, **kwargs)
+            return run
+
+        def prepare(cloud, *args):
+            calls["prepare"].append(tuple(cloud.points.shape))
+            return real_prepare(cloud, *args)
+        mp.setattr(ransac, "_cached_extractor", extractor)
+        mp.setattr(pipeline, "prepare_cloud", prepare)
+        clouds = pipeline.register_clouds(pts, nrm, spts, snrm, FAST,
+                                          seed=0, device="cpu")
     # 150 points, fewer than the 200 of the support floor: each cloud's
     # extraction ends in its first round
     bp, bn = _blob(150)
     blob = fast(pad_cloud(bp, bn, PAD, "cpu"),
                 pad_cloud(bp + 0.1, bn, PAD, "cpu"), 1)
     return dict(scene=(pts, nrm, spts, snrm), gt=(R, t), jax=(jres, jstats),
-                replay=replay, own=own, clouds=clouds, blob=(bp, bn, blob))
+                replay=replay, own=own, clouds=clouds, calls=calls,
+                blob=(bp, bn, blob))
 
 
 def test_device_step_matches_reference(step_runs):
@@ -195,18 +216,46 @@ def test_device_step_matches_reference(step_runs):
     assert _rot_deg(T[:3, :3], R) < 3.0 and np.linalg.norm(T[:3, 3] - t) < 0.15
 
 
+def _assert_is_step(T, info, res):
+    """``(T, info)`` of a one-pair entry is the step's ``res``, bit for
+    bit."""
+    np.testing.assert_array_equal(T, res.transform.numpy())
+    for f in pipeline.RegistrationResult._fields[1:]:
+        assert info[f] == getattr(res, f).item(), f
+
+
 def test_device_step_extracts_register_clouds_planes(step_runs):
-    """Same seed, no swap, no cap: the step's lockstep extraction draws
-    what ``register_clouds``' two extractions draw, so the planes and the
-    result are the same."""
+    """Same seed, no swap, no cap: ``register_clouds`` runs the step's
+    stages at B = 1, so its planes and its result are the step's."""
     res, stats = step_runs["own"]
     T, info = step_runs["clouds"]
     assert info["success"] and bool(res.success)
-    np.testing.assert_allclose(res.transform.numpy(), T, atol=1e-5)
-    assert int(res.matched_planes) == info["matched_planes"]
-    for f in ("score", "overlap"):
-        assert float(getattr(res, f)) == pytest.approx(info[f], abs=1e-6)
+    _assert_is_step(T, info, res)
     assert stats.rounds.shape == (2,)
+
+
+def test_register_clouds_runs_both_clouds_at_once(step_runs):
+    """One extractor call and one ``prepare_cloud`` call, each over the
+    target and the source stacked."""
+    assert step_runs["calls"] == {"extract": [(2, PAD, 3)],
+                                  "prepare": [(2, PAD, 3)]}
+
+
+def test_register_with_planes_is_the_step_after_extraction(step_runs):
+    """The planes the step's extraction finds for the room pair (its
+    generators on seed 0), given to ``register_with_planes``: the step's
+    result, bit for bit."""
+    pts, nrm, spts, snrm = step_runs["scene"]
+    clouds = pipeline._stack(pad_cloud(pts, nrm, PAD, "cpu"),
+                             pad_cloud(spts, snrm, PAD, "cpu"))
+    planes, _ = pipeline._extract_selected(
+        clouds, pipeline._generators(0, "cpu"), FAST, PAD)
+    T, info = pipeline.register_with_planes(
+        pts, nrm, spts, snrm,
+        *(pipeline.PlaneSet(*(x[c] for x in planes)) for c in (0, 1)), FAST,
+        device="cpu")
+    _assert_is_step(T, info, step_runs["own"][0])
+    assert [info["tgt_planes"], info["src_planes"]] == planes.count.tolist()
 
 
 def test_device_step_without_planes(step_runs):

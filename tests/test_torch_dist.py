@@ -177,8 +177,8 @@ def test_host_syncs_of_shards_add_up(pairs):
         ptypes.HOST_SYNCS["count"] = 0
         run()
         syncs.append(ptypes.HOST_SYNCS["count"])
-    # and each shard's copy of its 8 result fields to the host
-    assert syncs[0] == syncs[1] + syncs[2] + 2 * 8 > 16, syncs
+    # and each shard's one copy of its results to the host
+    assert syncs[0] == syncs[1] + syncs[2] + 2 * 1 > 2, syncs
 
 
 def test_lone_shard_runs_in_the_callers_thread(pairs, monkeypatch):

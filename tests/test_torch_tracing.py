@@ -16,9 +16,12 @@ the CPU.
   (``extract.graph_rounds``, ``extract.graph_captures``).  A launch
   counted during a graph's capture is credited at each replay instead
   (``kernels/build.captured_launches``).
-* Host reads by site: ``register_array_pairs`` copies 8 result fields a
-  chunk (``entry.read_out``), each shard of a mesh 8 of its own (its
-  ``shard.<k>.<device>`` span); two CPU shards credit one call record.
+* Host reads by site: ``register_clouds`` extracts both clouds in one
+  lockstep call and reads its plane counts in one copy and its results
+  in another (``entry.read_out``), the spacing none; ``register_array_pairs``
+  copies a chunk's results in one read (``entry.read_out``), each shard
+  of a mesh its own in one (its ``shard.<k>.<device>`` span); two CPU
+  shards credit one call record.
 
 CPU tensors never count a kernel launch (the credit test puts the counts
 back as it found them)."""
@@ -176,23 +179,39 @@ def test_profiled_register_clouds_shows_only_the_stages(pairs):
     assert timing.calls()[-1]["profiled"]
 
 
-def test_register_clouds_record(pairs):
+def test_register_clouds_record(pairs, monkeypatch):
     tp, tn, sp, sn = pairs[0]
+    stats = []
+    real = ransac._cached_extractor
+
+    def recorded(cfg, num_points):
+        fn = real(cfg, num_points)
+
+        def run(*args, **kwargs):
+            out = fn(*args, **kwargs)
+            stats.append(out[1])
+            return out
+        return run
+    monkeypatch.setattr(ransac, "_cached_extractor", recorded)
     (rec,), syncs = _last_call(lambda: register_clouds(
         tp, tn, sp, sn, CFG, seed=0, device="cpu"))
     assert rec["entry"] == "register_clouds" and rec["pairs"] == 1
     spans, counters = rec["spans"], rec["counters"]
     assert set(STAGES) <= set(spans)
-    assert spans["extract"]["count"] == 2            # one a cloud
+    assert spans["extract"]["count"] == 1            # both clouds in lockstep
     assert spans["extract.round"]["count"] == counters["extract.rounds"]
     assert spans["extract.done_read"]["host_reads"] \
         == counters["extract.rounds"]
-    # two plane counts, seven result scalars, the transform
-    assert spans["entry.read_out"]["host_reads"] == 10
+    # the two plane counts in one copy, the results and spacing in another
+    assert spans["entry.read_out"]["host_reads"] == 2
+    assert spans["spacing"]["host_reads"] == 0
     assert counters["host_reads"] == syncs \
         == sum(s["host_reads"] for s in spans.values())
-    assert counters["extract.frozen"] == 0           # one cloud a call
-    assert counters["extract.cloud_rounds"] == counters["extract.rounds"]
+    (st,) = stats                                    # one extractor call
+    rounds = st.rounds.tolist()
+    assert counters["extract.rounds"] == max(rounds)
+    assert counters["extract.cloud_rounds"] == 2 * counters["extract.rounds"]
+    assert counters["extract.frozen"] == abs(rounds[0] - rounds[1])
 
 
 def test_register_array_pairs_counts_its_result_copies(pairs):
@@ -200,8 +219,8 @@ def test_register_array_pairs_counts_its_result_copies(pairs):
         pairs, CFG, seed=0, device="cpu", batch_pairs=2))
     assert rec["entry"] == "register_array_pairs" and rec["pairs"] == 2
     spans, counters = rec["spans"], rec["counters"]
-    # the 8 fields of one chunk's results
-    assert spans["entry.read_out"]["host_reads"] == 8
+    # one chunk's results in one copy
+    assert spans["entry.read_out"]["host_reads"] == 1
     assert spans["entry.stage_in"]["count"] == 2     # the caps, one chunk
     assert spans["step.setup"]["count"] == 1
     assert counters["host_reads"] == syncs \
@@ -221,7 +240,7 @@ def test_two_cpu_shards_credit_one_call(pairs):
     for k in (0, 1):
         name = f"shard.{k}.cpu"
         assert spans[name]["count"] == 1
-        assert spans[name]["host_reads"] == 8         # its result copies
+        assert spans[name]["host_reads"] == 1         # its results' copy
         assert counters[f"shard.{k}.pairs"] == 1
         assert 0 < rep[name]["self"] < rep[name]["total"]
     # both shards' spans: two device steps, each extracting 2 clouds

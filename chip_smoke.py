@@ -34,7 +34,15 @@ extractions must be the main path's bits:
     at k = 1, 6 and 16, the spacing through it, one launch a call, each
     shape timed at k = 6 beside its plain version, the yardstick
     ``torch.cdist`` + ``torch.topk`` in the plain version's blocks, its
-    bound, its issue ceiling and its registers (ptxas).  With
+    bound, its issue ceiling and its registers (ptxas); K5 (the
+    penetration walk) on the tests of real registrations
+    (``WALK_CELLS``: the first 8 pool pairs of ``resso60k`` and of
+    ``tls131k`` in one lockstep batch each, ``resso60k``'s first through
+    ``register_clouds``), each run one ``run_tests`` call and one launch
+    with the counts reset before it, its verdicts and each test's four
+    counts bit for bit the plain walk's, no host read, timed beside the
+    plain walk, with its bound over the live tests' live points and its
+    registers.  With
     ``--parent DIR`` (a checkout of
     the parent tree), also build DIR's ``csrc/nn.cu`` and ``csrc/cc.cu``
     and time its K1/K2/K3 against this tree's in turns on the same inputs
@@ -176,7 +184,8 @@ shape; each row's ``launches`` counts its path's run and
 final ICP's in its ``enable_icp`` batch), the ``"eval_suite"`` rows their
 shape's launches in (r) (K3's: all of (r)'s), K4's rows (at the
 benchmark's spacing shapes) their shape's launches in their path's run,
-(o)'s or (f)'s, 0 where that run's clouds pad to another size; the rows of chip_smoke's own K3
+(o)'s or (f)'s, 0 where that run's clouds pad to another size; K5's rows
+the launches of their own pool pairs' run in (b); the rows of chip_smoke's own K3
 grids lie on no path: ``"path": null``, ``"launches": 0``), the card's
 name and power limit from nvidia-smi, and ``{"ok": true, "device":
 {...}}``.
@@ -200,6 +209,7 @@ import numpy as np
 import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+import penetration_pools  # noqa: E402
 import spacing_clouds  # noqa: E402
 
 #: the card's published peaks (NVIDIA H100 SXM data sheet): fp32 outside
@@ -237,7 +247,8 @@ K1_FLOP = 13
 KERNEL_NAMES = {"nearest_neighbor": "nn_kernel",
                 "oriented_min_dist_sq": "oriented_kernel",
                 "close_and_label_lanes": "close_label_kernel",
-                "topk_dist_sq": "topk_kernel"}
+                "topk_dist_sq": "topk_kernel",
+                "penetration_walk": "walk_kernel"}
 #: K4's shapes (P, rows a cloud, live rows of each cloud, path): the
 #: spacing's 10000 samples of each source cloud against its rows in the
 #: benchmark's cells (``spacing_clouds.BENCH_CLOUDS``), with the entry
@@ -252,6 +263,17 @@ TOPK_SHAPES = tuple((*c, path) for c, path in zip(
 #: thread takes for its 4 queries; ``csrc/knn.cu``)
 K4_FLOP = 8
 K4_ISSUE = 6.25
+#: K5's cells (regbench configuration, pairs, the entry its cell runs):
+#: the two batch cells' lockstep batches of 8 pool pairs and the single
+#: cell's first pool pair
+WALK_CELLS = (("resso60k", BATCH, "register_array_pairs"),
+              ("tls131k", BATCH, "register_array_pairs"),
+              ("resso60k", 1, "register_clouds"))
+#: K5 a (sample, point) distance: floating-point operations (the dot as a
+#: product and two fused multiply-adds, the doubling as a fused
+#: multiply-add with |p|^2, the add of |s|^2; ``csrc/penetration.cu``); a
+#: live test needs S (n1 + n2) of them over its planes' live points
+K5_FLOP = 8
 #: integer operations a cell of a K3 round (the 4 minima of the separable
 #: 3 x 3 min: two down the column, two along the row; the closed-mask
 #: select is not counted), and a cell of the close (4 ORs, 4 ANDs, 1 OR)
@@ -611,6 +633,100 @@ def check_topk(nn, report: str):
                      "bound_by": bound_by, "issue_ms": issue_ms,
                      "library_ms": library_ms, "registers": registers})
         del pts, mask, q, got, want
+    return rows
+
+
+def check_walk(report: str):
+    """(b) K5 on the penetration tests of real registrations at
+    ``WALK_CELLS``: counts reset, the pool pairs registered through the
+    cell's entry, whose run must make one ``run_tests`` call and one K5
+    launch; that call's verdicts and, through the test-only entry, each
+    test's four counts bit for bit the plain two-tier walk's on the same
+    CUDA tensors; one launch and no host read again; K5's time beside the
+    plain walk's and its bound over the live tests' live points; its
+    registers from the build's ptxas ``report``.  Returns the rows of the
+    kernels' JSON line, each with its run's ``launches``."""
+    from plade_tpu_torch.core import types as ptypes
+    from plade_tpu_torch.core.ops import lift, per_pair
+    from plade_tpu_torch.kernels import penetration as walk
+    from plade_tpu_torch.kernels.build import LAUNCHES
+    from plade_tpu_torch.verify import penetration
+    registers = ptxas_registers(report, "walk_kernel")
+    print(f"[b] K5 walk_kernel (registers, spill stores, spill loads): "
+          f"{registers}", flush=True)
+    rows = []
+    for config, B, path in WALK_CELLS:
+        reset_counts()
+        seen, launches = penetration_pools.pool_walk(config, B, path)
+        if len(seen) != 1 or launches != 1 \
+                or LAUNCHES["penetration_walk"] != 1:
+            fail(f"[b] K5 {config} B={B} through {path}: {len(seen)} "
+                 f"run_tests calls, {launches} K5 launches")
+        args, kw, got = seen[0]
+        want = penetration.run_tests_plain(*args, **kw)
+        if not torch.equal(got, want):
+            fail(f"[b] K5 {config} B={B}: {int((got != want).sum())} "
+                 "verdicts differ from the plain walk's")
+        if args[1].dim() == 3:
+            args = lift(args)
+        tests, R, t, spts, scnt, tpts, tcnt, scoef, tcoef = args
+        S = kw["n_samples"]
+        radius = per_pair(kw["search_radius"], B, "cuda")
+        min_d = per_pair(kw["min_distance"], B, "cuda")
+        kernel_args = (tests, R, t, spts, scnt, tpts, tcnt, scoef, tcoef,
+                       radius, min_d, kw["min_points"], kw["max_ratio"], S)
+        verdict, counts = walk.penetration_walk_counts(*kernel_args)
+        plain = penetration.plain_counts(
+            tests, R, t, spts, scnt, tpts, tcnt, scoef, tcoef,
+            kw["search_radius"], kw["min_distance"], S)
+        if not torch.equal(verdict.reshape(got.shape), got) \
+                or not torch.equal(counts, plain):
+            fail(f"[b] K5 {config} B={B}: {int((counts != plain).sum())} "
+                 "counts differ from the plain walk's")
+        torch.cuda.synchronize()
+        syncs = ptypes.HOST_SYNCS["count"]
+        again = walk.penetration_walk(*kernel_args)
+        torch.cuda.synchronize()
+        if LAUNCHES["penetration_walk"] != 3 \
+                or ptypes.HOST_SYNCS["count"] != syncs \
+                or not torch.equal(again.reshape(got.shape), got):
+            fail(f"[b] K5 {config} B={B}: {LAUNCHES['penetration_walk']} "
+                 "launches of three calls, or a host read, or other bits")
+        ms = cuda_ms(lambda: walk.penetration_walk(*kernel_args))
+        plain_ms = cuda_ms(lambda: penetration.run_tests_plain(*seen[0][0],
+                                                               **kw),
+                           reps=3, warm=1)
+        v = tests.valid
+        n1 = torch.gather(scnt, 1, tests.src.long())
+        n2 = torch.gather(tcnt, 1, tests.tgt.long())
+        live_tests = int(v.sum())
+        live_points = int(((n1 + n2) * v).sum())
+        small = int((v & (n1 <= 512) & (n2 <= 512)).sum())
+        # every live sample against every live point of each live test's
+        # two planes; the points read once, the verdicts written once
+        bound_ms, bound_by = bound(K5_FLOP * S * live_points,
+                                   12 * int(scnt.sum() + tcnt.sum())
+                                   + v.numel())
+        shape = f"{B}x{v.shape[1]}"
+        print(f"[b] K5 penetration_walk {config} {shape} tests through "
+              f"{path}: one run_tests call, one launch, no host read; "
+              f"verdicts and counts bit-identical to the plain walk's; "
+              f"{live_tests} live tests ({small} in the small tier, "
+              f"{live_points / max(live_tests, 1):.0f} live points a test, "
+              f"largest plane {int(torch.maximum(n1, n2)[v].max())}), "
+              f"{int(got.sum())} penetrable; kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}, "
+              f"{100 * bound_ms / ms:.1f}% of it)", flush=True)
+        rows.append({"name": "penetration_walk", "route": "cuda",
+                     "source": "plade_tpu_torch/csrc/penetration.cu",
+                     "replaces": None, "shape": shape, "config": config,
+                     "path": path, "launches": launches,
+                     "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": bound_ms, "bound_by": bound_by,
+                     "live_tests": live_tests, "live_points": live_points,
+                     "samples": S, "registers": registers})
+        del seen, args, kw, got, want, tests, R, t, spts, tpts, counts, plain
+        del verdict, again, kernel_args
     return rows
 
 
@@ -3374,6 +3490,7 @@ def main():
     del inputs
     rows += check_batched_kernels(nn)
     rows += check_topk(nn, report)
+    rows += check_walk(report)
     per_clock = cell_ops_per_clock()
     rows += check_cc(cc, per_clock, old_k3)
 
@@ -3515,7 +3632,7 @@ def main():
         row["launches_by_path"] = {p: counts.get(row["name"], 0)
                                    for p, counts in paths.items()}
         if path in ("register_batch", "eval_suite") \
-                or row["name"] == "topk_dist_sq":
+                or row["name"] in ("topk_dist_sq", "penetration_walk"):
             pass                # (o)'s, (r)'s or (f)'s at this row's shape
         elif path is None:
             # measured on chip_smoke's own grids, on no main path (K3' is

@@ -23,7 +23,7 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("nn.cu", "cc.cu", "knn.cu")
+SOURCES = ("nn.cu", "cc.cu", "knn.cu", "penetration.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC",
               # the kernels' d2 must round like the plain PyTorch version
@@ -34,7 +34,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 #: nowhere else (:func:`count_launch`): a run resets the counts and reads
 #: them to show that its path went through the kernels
 LAUNCHES = {"nearest_neighbor": 0, "oriented_min_dist_sq": 0,
-            "close_and_label_lanes": 0, "topk_dist_sq": 0}
+            "close_and_label_lanes": 0, "topk_dist_sq": 0,
+            "penetration_walk": 0}
 #: the shards of a mesh launch from host threads of their own: the counts'
 #: read-modify-write and the first build of the library hold this lock
 _LOCK = threading.Lock()
@@ -96,6 +97,12 @@ _SIGNATURES = {
     # P, Q, T, k -> references a slice of a K4 launch
     "plade_topk_slice": (ctypes.c_int, ctypes.c_int, ctypes.c_int,
                          ctypes.c_int),
+    # cand, src, tgt, start, direc, length, valid, R, t, src_pts,
+    # src_counts, tgt_pts, tgt_counts, src_coeffs, tgt_coeffs, radius, min_d,
+    # r_occ, r_near, out, counts (or NULL), B, K, C, Ps, Pt, M, S,
+    # min_points, max_ratio, stream
+    "plade_penetration_walk": (*(_P,) * 21, *(ctypes.c_int,) * 8,
+                               ctypes.c_float, _P),
     # occ, out, L, G, iters, stream
     "plade_close_and_label": (_P, _P, ctypes.c_int, ctypes.c_int,
                               ctypes.c_int, _P),

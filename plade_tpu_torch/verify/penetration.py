@@ -5,10 +5,14 @@ Three phases: dense cheap geometry over all (candidate, source plane,
 target plane) triples; compaction of the triples that need point counting
 into a static test budget, each test walking its clipped segment with a
 fixed number of samples; and a scatter of verdicts back to candidates.
-Tests whose two planes both hold at most ``small_points`` points run over
-sliced buffers, as in the reference.  The live-chunk loop is a Python loop
-over the chunks that hold tests: one host sync per buffer tier.  Every
-function takes one pair or a leading axis of pairs.
+On a card the walk is K5 (``kernels/penetration.py``,
+``csrc/penetration.cu``): one launch over every test of every pair, over
+each plane's live points, no host read.  CPU tensors take the plain walk,
+:func:`run_tests_plain`: tests whose two planes both hold at most
+``small_points`` points run over sliced buffers, as in the reference, and
+the live-chunk loop is a Python loop over the chunks that hold tests, one
+host sync per buffer tier.  Every function takes one pair or a leading
+axis of pairs.
 
 Reference quirks kept: the pair-skip compares the normals' dot product
 with the angle in radians (util.cpp:489); side 1 needs both counts >=
@@ -25,6 +29,8 @@ from ..core.ops import drop, flat_rows, lift, nonzero_static, per_pair, take
 from ..core.types import host_value
 from ..geometry.lines import intersect_planes
 from ..geometry.transforms import normalize
+from ..kernels import penetration as kernels
+from ..utils import timing
 
 
 def _clip_line_with_quad(u, p0, corners):
@@ -175,10 +181,79 @@ def run_tests(tests: PenTests, R, t,
               small_points: int = 512):
     """The point-counting walk of each compacted test; returns per-test
     ``penetrable`` (K,) bool, or (P, K) over a leading axis of P pairs
-    (``search_radius`` and ``min_distance`` numbers or (P,)).  Each buffer
-    tier runs the chunk count of the pair with the most live tests (one
-    host read of the pairs' counts a tier); chunks past a pair's live
-    count hold invalid tests, whose verdict is False."""
+    (``search_radius`` and ``min_distance`` numbers or (P,)).  On a card K5
+    walks every test in one launch (``chunk`` and ``small_points`` unused);
+    CPU tensors take :func:`run_tests_plain`, whose verdicts K5 gives."""
+    if R.device.type == "cpu":
+        return run_tests_plain(
+            tests, R, t, src_plane_pts, src_plane_counts, tgt_plane_pts,
+            tgt_plane_counts, src_coeffs, tgt_coeffs, search_radius,
+            min_points, min_distance, n_samples, chunk, max_ratio,
+            small_points)
+    single = R.dim() == 3
+    if single:
+        (tests, R, t, src_plane_pts, src_plane_counts, tgt_plane_pts,
+         tgt_plane_counts, src_coeffs, tgt_coeffs) = lift(
+            (tests, R, t, src_plane_pts, src_plane_counts, tgt_plane_pts,
+             tgt_plane_counts, src_coeffs, tgt_coeffs))
+    B = R.shape[0]
+    pen = kernels.penetration_walk(
+        tests, R, t, src_plane_pts, src_plane_counts, tgt_plane_pts,
+        tgt_plane_counts, src_coeffs, tgt_coeffs,
+        per_pair(search_radius, B, R.device),
+        per_pair(min_distance, B, R.device), min_points, max_ratio,
+        n_samples)
+    timing.count("penetration.kernel_walks")
+    return pen[0] if single else pen
+
+
+def verdicts(counts, valid, min_points: int, max_ratio: float):
+    """``penetrable`` from each test's (..., 4) counts (pos1, neg1, pos2,
+    neg2): side 1 needs both counts >= ``min_points``, side 2 one, and each
+    side's imbalance ratio at most ``max_ratio``."""
+    pos1, neg1, pos2, neg2 = counts.unbind(-1)
+
+    def ratio(pos, neg):
+        return torch.maximum(pos, neg) / torch.clamp(
+            torch.minimum(pos, neg + 1), min=1)
+
+    # side 1: source points vs target plane (util.cpp:1383-1415)
+    side1 = (pos1 >= min_points) & (neg1 >= min_points) \
+        & (ratio(pos1, neg1) <= max_ratio)
+    # side 2: target points vs source plane (util.cpp:1417-1453)
+    side2 = ((pos2 >= min_points) | (neg2 >= min_points)) \
+        & (ratio(pos2, neg2) <= max_ratio)
+    return side1 & side2 & valid
+
+
+def run_tests_plain(tests: PenTests, R, t,
+                    src_plane_pts, src_plane_counts,
+                    tgt_plane_pts, tgt_plane_counts,
+                    src_coeffs, tgt_coeffs,
+                    search_radius, min_points: int, min_distance,
+                    n_samples: int, chunk: int = 512, max_ratio: float = 5.0,
+                    small_points: int = 512):
+    """:func:`run_tests` in plain PyTorch, on any device: the verdicts of
+    :func:`plain_counts`."""
+    counts = plain_counts(tests, R, t, src_plane_pts, src_plane_counts,
+                          tgt_plane_pts, tgt_plane_counts, src_coeffs,
+                          tgt_coeffs, search_radius, min_distance,
+                          n_samples, chunk, small_points)
+    return verdicts(counts, tests.valid, min_points, max_ratio)
+
+
+def plain_counts(tests: PenTests, R, t,
+                 src_plane_pts, src_plane_counts,
+                 tgt_plane_pts, tgt_plane_counts,
+                 src_coeffs, tgt_coeffs,
+                 search_radius, min_distance,
+                 n_samples: int, chunk: int = 512, small_points: int = 512):
+    """Each test's (K, 4) or (P, K, 4) int32 counts (pos1, neg1, pos2,
+    neg2; 0 for invalid tests) by the plain two-tier walk.  Each buffer tier
+    runs the chunk count of the pair with the most live tests (one host
+    read of the pairs' counts a tier; ``penetration.plain_chunks`` counts
+    the chunks); chunks past a pair's live count hold invalid tests, whose
+    counts are dropped."""
     single = R.dim() == 3
     if single:
         (tests, R, t, src_plane_pts, src_plane_counts, tgt_plane_pts,
@@ -192,8 +267,7 @@ def run_tests(tests: PenTests, R, t,
     search_radius = per_pair(search_radius, B, dev)[:, None]
     min_distance = per_pair(min_distance, B, dev)[:, None]
 
-    def one_chunk(src_pts, tgt_pts, cand, src, tgt, start, direc, length,
-                  valid):
+    def one_chunk(src_pts, tgt_pts, cand, src, tgt, start, direc, length):
         Rt = take(R, cand)                                  # (B,k,3,3)
         tt = take(t, cand)
         cloud1 = torch.einsum("...kij,...kmj->...kmi", Rt,
@@ -232,24 +306,15 @@ def run_tests(tests: PenTests, R, t,
             neg = torch.sum((near & (signed < -min_d)).to(torch.int32), -1)
             return pos, neg
 
-        def ratio(pos, neg):
-            return torch.maximum(pos, neg) / torch.clamp(
-                torch.minimum(pos, neg + 1), min=1)
-
-        # side 1: source points vs target plane (util.cpp:1383-1415)
-        pos1, neg1 = side(cloud1, m1, cloud2, m2, ntg, dtg)
-        side1 = (pos1 >= min_points) & (neg1 >= min_points) \
-            & (ratio(pos1, neg1) <= max_ratio)
-        # side 2: target points vs source plane (util.cpp:1417-1453)
-        pos2, neg2 = side(cloud2, m2, cloud1, m1, rn, rd)
-        side2 = ((pos2 >= min_points) | (neg2 >= min_points)) \
-            & (ratio(pos2, neg2) <= max_ratio)
-        return side1 & side2 & valid
+        # side 1: source points vs target plane; side 2: target points vs
+        # source plane
+        return torch.stack(side(cloud1, m1, cloud2, m2, ntg, dtg)
+                           + side(cloud2, m2, cloud1, m1, rn, rd), -1)
 
     chunk = min(chunk, K)
     per_test = (tests.cand.to(torch.int64), tests.src.to(torch.int64),
                 tests.tgt.to(torch.int64), tests.start, tests.direc,
-                tests.length, tests.valid)
+                tests.length)
 
     M = src_plane_pts.shape[-2]
     Ms = min(small_points, M)
@@ -259,25 +324,29 @@ def run_tests(tests: PenTests, R, t,
     def run_group(sel, src_pts, tgt_pts):
         """Front-compact each pair's selected tests, run the chunks that
         hold any test of some pair (the reference loop is exactly as long
-        as its live tests, util.cpp:450-511), and scatter verdicts back to
-        test order."""
+        as its live tests, util.cpp:450-511), and scatter counts back to
+        test order (entries past a pair's selected tests to a dropped
+        column)."""
         n_sel = max(host_value(torch.sum(sel.to(torch.int32), dim=1)))
         idx = nonzero_static(sel, K, K)
         safe = torch.clamp(idx, max=K - 1)
         g = [take(x, safe) for x in per_test]
-        g[-1] = g[-1] & (idx < K)
-        out = torch.zeros((B, K), dtype=torch.bool, device=dev)
-        for s in range(0, n_sel, chunk):
+        out = torch.zeros((B, K, 4), dtype=torch.int32, device=dev)
+        starts = range(0, n_sel, chunk)
+        timing.count("penetration.plain_chunks", len(starts))
+        for s in starts:
             out[:, s:s + chunk] = one_chunk(
                 src_pts, tgt_pts, *(x[:, s:s + chunk] for x in g))
-        pen = torch.zeros((B * (K + 1),), dtype=torch.bool, device=dev)
-        pen[flat_rows(idx, K + 1)] = out.reshape(-1)
-        return pen.reshape(B, K + 1)[:, :K]
+        counts = torch.zeros((B * (K + 1), 4), dtype=torch.int32,
+                             device=dev)
+        counts[flat_rows(idx, K + 1)] = out.reshape(-1, 4)
+        return counts.reshape(B, K + 1, 4)[:, :K]
 
-    pen = run_group(tests.valid & is_small, src_plane_pts[..., :Ms, :],
-                    tgt_plane_pts[..., :Ms, :])
-    pen |= run_group(tests.valid & ~is_small, src_plane_pts, tgt_plane_pts)
-    return pen[0] if single else pen
+    counts = run_group(tests.valid & is_small, src_plane_pts[..., :Ms, :],
+                       tgt_plane_pts[..., :Ms, :])
+    counts += run_group(tests.valid & ~is_small, src_plane_pts,
+                        tgt_plane_pts)
+    return counts[0] if single else counts
 
 
 def rejected_candidates(tests: PenTests, penetrable, num_candidates: int):

@@ -323,6 +323,61 @@ def test_penetration_chunks_run_to_the_slowest_pair():
     _same(batched, singles)
 
 
+def test_penetration_plain_walk_counts_its_chunks():
+    """CPU tensors take the plain walk: ``penetration.plain_chunks``
+    counts the chunks it runs (the most selected tests of a pair, a tier),
+    ``penetration.kernel_walks`` stays 0 and no kernel launch is
+    counted."""
+    from plade_tpu_torch.utils import timing
+    rng = np.random.default_rng(2)
+    args = _stack_args([_pen_pair(rng, 3), _pen_pair(rng, 37)])
+    tests = args[0]
+    counts = args[4]
+    small = (torch.gather(counts, 1, tests.src.long()) <= 32) \
+        & (torch.gather(counts, 1, tests.tgt.long()) <= 32)
+    v = tests.valid
+    want = sum(-(-int(torch.sum(v & tier, dim=1).max()) // 8)
+               for tier in (small, ~small))
+    before = dict(nn.LAUNCHES)
+    with timing.call("unit", 2):
+        penetration.run_tests(*args, search_radius=0.3, min_points=3,
+                              min_distance=0.05, n_samples=16, chunk=8,
+                              small_points=32)
+    rec = timing.calls()[-1]["counters"]
+    assert want > 2 and rec["penetration.plain_chunks"] == want
+    assert "penetration.kernel_walks" not in rec
+    assert nn.LAUNCHES == before
+
+
+def test_penetration_counts_give_the_verdicts():
+    """The plain walk's four counts a test (0 for invalid tests) give its
+    verdicts; they do not depend on the tier split."""
+    rng = np.random.default_rng(3)
+    args = _stack_args([_pen_pair(rng, 3), _pen_pair(rng, 37)])
+    kw = dict(search_radius=0.3, min_distance=0.05, n_samples=16, chunk=8)
+    counts = penetration.plain_counts(*args, small_points=32, **kw)
+    assert counts.shape == (2, 40, 4) and counts.dtype == torch.int32
+    assert torch.equal(counts, penetration.plain_counts(
+        *args, small_points=1 << 20, **kw))
+    assert (counts[~args[0].valid] == 0).all()
+    assert (counts[args[0].valid] > 0).any()
+    got = penetration.run_tests(*args, min_points=3, small_points=32, **kw)
+    assert torch.equal(got, penetration.verdicts(counts, args[0].valid, 3,
+                                                 5.0))
+
+
+def test_penetration_walk_rejects_cpu_tensors():
+    """K5 takes CUDA tensors only, as K4 does: CPU tensors raise."""
+    from plade_tpu_torch.kernels import penetration as walk
+    rng = np.random.default_rng(4)
+    tests, R, t, spts, scnt, tpts, tcnt, sco, tco = _stack_args(
+        [_pen_pair(rng, 3), _pen_pair(rng, 5)])
+    r = torch.full((2,), 0.3)
+    with pytest.raises(ValueError, match="CUDA device"):
+        walk.penetration_walk(tests, R, t, spts, scnt, tpts, tcnt, sco, tco,
+                              r, r / 2, 3, 5.0, 16)
+
+
 # ------------------------------------------------------------------ (d)
 
 def _kernel_inputs(rng, P, Q, T):

@@ -1,4 +1,4 @@
-"""K1, K2, K3 and K4 on a card: each CUDA kernel against its plain
+"""K1, K2, K3, K4 and K5 on a card: each CUDA kernel against its plain
 PyTorch version on the same CUDA tensors; and extraction's passes replayed
 from a CUDA graph against its eager loop on the same generators.  These tests
 import no JAX, so that they also run on a machine that has a GPU and no
@@ -14,12 +14,15 @@ also across the reference slices its atomic merge joins, and K3 is
 integer-only, also on a serpentine grid that 256 rounds leave unconverged
 (the kernel's early stop against the plain version's full count), and K4
 (the spacing's top-k) takes the plain version's |q|^2 and |r|^2 and
-rounds its q.r as the plain version's cuBLAS product does."""
+rounds its q.r as the plain version's cuBLAS product does, and K5 (the
+penetration walk) rounds every value that feeds a comparison as the plain
+walk does."""
 import numpy as np
 import pytest
 import torch
 
 import cc_grids
+from penetration_pools import pool_walk
 from spacing_clouds import BENCH_CLOUDS, spacing_inputs
 from plade_tpu_torch.core import ops
 from plade_tpu_torch.kernels import cc, nn
@@ -569,3 +572,182 @@ def test_cuda_pass_graphs_are_one_a_stream():
         assert _same(got[0], want[0]) and _same(got[1], want[1])
     assert captures == [1, 1, 0, 1, 1]
     assert ransac._GRAPHS[side][0][0] is not ransac._GRAPHS[home][0][0]
+
+
+# ------------------------------------------------------------------ K5
+
+def _pool_walks(config, B):
+    """The ``run_tests`` call of one lockstep registration of the first
+    ``B`` pool pairs of regbench's configuration ``config`` on the card, at
+    its ``PladeConfig`` (``penetration_pools.pool_walk``): (args, keywords),
+    CUDA tensors.  That run made one call and one K5 launch."""
+    seen, launches = pool_walk(config, B)
+    assert len(seen) == 1 and launches == 1
+    return seen[0][:2]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("config", ["resso60k", "tls131k"])
+@pytest.mark.parametrize("B", [1, 8])
+def test_cuda_penetration_walk_matches_plain_on_pool_pairs(config, B):
+    """K5 on the tests of real registrations at the benchmark's
+    configurations: one launch a call and no host read; its verdicts and
+    its four counts a test bit for bit the plain two-tier walk's on the
+    same CUDA tensors, over tests of both tiers and invalid ones."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card)")
+    from plade_tpu_torch.core.types import HOST_SYNCS
+    from plade_tpu_torch.kernels import penetration as walk
+    from plade_tpu_torch.verify import penetration
+    args, kw = _pool_walks(config, B)
+    tests, R, t, spts, scnt, tpts, tcnt, scoef, tcoef = args
+    torch.cuda.synchronize()
+    launches, syncs = nn.LAUNCHES["penetration_walk"], HOST_SYNCS["count"]
+    got = penetration.run_tests(*args, **kw)
+    torch.cuda.synchronize()
+    assert nn.LAUNCHES["penetration_walk"] == launches + 1
+    assert HOST_SYNCS["count"] == syncs
+    want = penetration.run_tests_plain(*args, **kw)
+    assert torch.equal(got, want)
+    # the four counts of every test, every side walked
+    plain = penetration.plain_counts(
+        tests, R, t, spts, scnt, tpts, tcnt, scoef, tcoef,
+        kw["search_radius"], kw["min_distance"], kw["n_samples"])
+    radius = ops.per_pair(kw["search_radius"], B, "cuda")
+    min_d = ops.per_pair(kw["min_distance"], B, "cuda")
+    verdict, counts = walk.penetration_walk_counts(
+        tests, R, t, spts, scnt, tpts, tcnt, scoef, tcoef, radius, min_d,
+        kw["min_points"], kw["max_ratio"], kw["n_samples"])
+    assert torch.equal(verdict, got) and torch.equal(counts, plain)
+    # what the tests covered: both tiers, invalid tests, counts on both
+    # sides, and (at B = 8) some penetrable tests
+    n1 = torch.gather(scnt, 1, tests.src.long())
+    n2 = torch.gather(tcnt, 1, tests.tgt.long())
+    small = (n1 <= 512) & (n2 <= 512)
+    v = tests.valid
+    print(f"{config} B={B}: valid {int(v.sum())} of {v.numel()}, small "
+          f"tier {int((v & small).sum())}, largest plane "
+          f"{int(torch.maximum(n1, n2)[v].max())}, penetrable "
+          f"{int(got.sum())}, counts > 0 {int((counts > 0).sum())}")
+    assert (v & small).any() and (v & ~small).any() and (~v).any()
+    assert (counts[..., :2] > 0).any() and (counts[..., 2:] > 0).any()
+    if B == 8:
+        assert got.any()
+
+
+def _crossing_case(rng, sizes, C=6, B=2, max_tests=64):
+    """B pairs of two source planes z = 0 and z = 5 and two target planes
+    x = 0 (around z = 0 and z = 5), uniform points in 2 x 2 squares, live
+    counts ``sizes[b]`` = (source 0, source 1, target 0, target 1) in 2048
+    rows (the rest BIG); C candidates: the identity and small rotations and
+    shifts.  The tests come from ``build_tests`` on the card: (tests, the
+    walk's arguments)."""
+    from plade_tpu_torch.verify import penetration
+    ex, ey, ez = np.eye(3, dtype=np.float32)
+
+    def cloud(n, u, v, c):
+        uv = rng.uniform(-1, 1, size=(n, 2)).astype(np.float32)
+        return (np.asarray(c, np.float32) + uv[:, :1] * u
+                + uv[:, 1:] * v).astype(np.float32)
+
+    def quad(c, u, v):
+        c = np.asarray(c, np.float32)
+        return np.stack([c - u - v, c + u - v, c + u + v, c - u + v])
+
+    def rot(angle):
+        axis = rng.normal(size=3)
+        axis /= np.linalg.norm(axis)
+        K = np.array([[0, -axis[2], axis[1]], [axis[2], 0, -axis[0]],
+                      [-axis[1], axis[0], 0]])
+        return (np.eye(3) + np.sin(angle) * K
+                + (1 - np.cos(angle)) * K @ K).astype(np.float32)
+
+    M = 2048
+    sc = np.array([[0, 0, 1, 0], [0, 0, 1, -5.0]], np.float32)
+    tc = np.array([[1, 0, 0, 0], [1, 0, 0, 0]], np.float32)
+    scorn = np.stack([quad([0, 0, 0], ex, ey), quad([0, 0, 5], ex, ey)])
+    tcorn = np.stack([quad([0, 0, 0], ey, ez), quad([0, 0, 5], ey, ez)])
+    per = []
+    for b in range(B):
+        n = sizes[b]
+        pts = [cloud(n[0], ex, ey, [0, 0, 0]), cloud(n[1], ex, ey, [0, 0, 5]),
+               cloud(n[2], ey, ez, [0, 0, 0]), cloud(n[3], ey, ez, [0, 0, 5])]
+        pad = [np.pad(c, ((0, M - len(c)), (0, 0)), constant_values=1e8)
+               for c in pts]
+        R = np.stack([np.eye(3, dtype=np.float32)]
+                     + [rot(rng.uniform(0.01, 0.3)) for _ in range(C - 1)])
+        t = np.concatenate([np.zeros((1, 3), np.float32),
+                            rng.uniform(-0.1, 0.1, (C - 1, 3))
+                            .astype(np.float32)])
+        per.append((R, t, np.ones(C, bool), sc, scorn, scorn.mean(1),
+                    np.ones(2, bool), tc, tcorn, tcorn.mean(1),
+                    np.ones(2, bool), np.stack(pad[:2]),
+                    np.array(n[:2], np.int32), np.stack(pad[2:]),
+                    np.array(n[2:], np.int32)))
+    (R, t, cv, sco, scr, sce, sm, tco, tcr, tce, tm, spts, scnt, tpts,
+     tcnt) = [torch.from_numpy(np.stack(x)).cuda() for x in zip(*per)]
+    tests = penetration.build_tests(
+        R, t, cv, sco, scr, sce, sm, tco, tcr, tce, tm,
+        torch.full((B,), 0.1, device="cuda"), 5.0 / 180.0 * np.pi,
+        max_tests=max_tests)
+    return tests, (R, t, spts, scnt, tpts, tcnt, sco, tco)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [32, 16, 45])
+def test_cuda_penetration_walk_full_planes(S):
+    """K5 against the plain walk on crossing planes of up to 2048 live
+    points (the full padded rows), beside planes of 300 and 40, under
+    candidates near the identity, with invalid tests past the live ones,
+    at sample counts below, at and above a warp's 32: the same verdicts
+    and counts, one launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card)")
+    from plade_tpu_torch.kernels import penetration as walk
+    from plade_tpu_torch.verify import penetration
+    rng = np.random.default_rng(S)
+    tests, (R, t, spts, scnt, tpts, tcnt, sco, tco) = _crossing_case(
+        rng, [(2048, 300, 2048, 1500), (40, 2048, 700, 2048)])
+    r = torch.tensor([0.1, 0.12], device="cuda")
+    md = r / 2.0
+    kw = dict(search_radius=r, min_points=10, min_distance=md, n_samples=S)
+    before = nn.LAUNCHES["penetration_walk"]
+    got = penetration.run_tests(tests, R, t, spts, scnt, tpts, tcnt, sco,
+                                tco, **kw)
+    torch.cuda.synchronize()
+    assert nn.LAUNCHES["penetration_walk"] == before + 1
+    assert torch.equal(got, penetration.run_tests_plain(
+        tests, R, t, spts, scnt, tpts, tcnt, sco, tco, **kw))
+    verdict, counts = walk.penetration_walk_counts(
+        tests, R, t, spts, scnt, tpts, tcnt, sco, tco, r, md, 10, 5.0, S)
+    assert torch.equal(verdict, got)
+    assert torch.equal(counts, penetration.plain_counts(
+        tests, R, t, spts, scnt, tpts, tcnt, sco, tco, r, md, S))
+    n1 = torch.gather(scnt, 1, tests.src.long())
+    n2 = torch.gather(tcnt, 1, tests.tgt.long())
+    v = tests.valid
+    assert (v & (n1 == 2048) & (n2 == 2048)).any() and (~v).any()
+    assert got.any() and not got[v].all()
+
+
+@pytest.mark.cuda
+def test_cuda_penetration_crossing_planes():
+    """The reference's tier-parity case (one small and one big crossing
+    plane pair, tests/test_torch_match_verify.py) through K5: the plain
+    walk's verdicts at either tier split, and the candidate is rejected."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card)")
+    from plade_tpu_torch.verify import penetration
+    rng = np.random.default_rng(0)
+    tests, (R, t, spts, scnt, tpts, tcnt, sco, tco) = _crossing_case(
+        rng, [(300, 1500, 300, 1500)], C=1, B=1, max_tests=16)
+    tests = ops.drop(tests)
+    args = (R[0], t[0], spts[0], scnt[0], tpts[0], tcnt[0], sco[0], tco[0])
+    kw = dict(search_radius=torch.tensor(0.1, device="cuda"), min_points=10,
+              min_distance=torch.tensor(0.05, device="cuda"), n_samples=32)
+    got = penetration.run_tests(tests, *args, **kw)
+    assert int(tests.valid.sum()) == 2 and bool(got.any())
+    for small_points in (512, 2048):
+        assert torch.equal(got, penetration.run_tests_plain(
+            tests, *args, small_points=small_points, **kw))
+    assert bool(penetration.rejected_candidates(tests, got, 1)[0])
